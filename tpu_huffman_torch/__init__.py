@@ -1,0 +1,84 @@
+"""tpu_huffman_torch: the static-Huffman codec in PyTorch, with hand-written
+CUDA kernels for NVIDIA Hopper (sm_90a).
+
+A port of the JAX package ``tpu_huffman``, which stays the reference: the
+same bytes, block index and errors for the same inputs. This slice carries
+the main path: one-shot ``encode``/``encode_with_index`` and the
+block-parallel ``decode_indexed``. Public functions take ``device``
+(default ``"cuda"``); on ``"cpu"`` they run the kernels' plain PyTorch
+versions. The kernels (``csrc/*.cu``) are built with ``nvcc`` at first use
+(``_build.py``). Nothing here imports JAX or the JAX package.
+
+Layer map (SURVEY.md §1):
+  1. library runtime  -> library_init/clean_up + errors (errors.py)
+  2. codec core       -> ops/encode.py, ops/decode.py and their kernels
+                         (ops/pack_encode.py, ops/chain_decode.py, csrc/)
+  3. symbol coder     -> tables.HuffmanTable
+"""
+
+from __future__ import annotations
+
+from .errors import (
+    CompressionError,
+    ShortBufferError,
+    TableError,
+    UnknownSymbolError,
+)
+from .ops import (
+    BlockIndex,
+    decode_indexed,
+    encode,
+    encode_with_index,
+    get_encoded_length,
+)
+from .tables import (
+    CodeSpec,
+    HuffmanTable,
+    from_reference,
+    load_hpack_table,
+    load_static_test_table,
+    make_canonical,
+)
+
+__version__ = "0.1.0"
+
+_library_initialized = False
+
+
+def library_init() -> None:
+    """Parity with aws_compression_library_init. Idempotent; only flips the
+    guard."""
+    global _library_initialized
+    _library_initialized = True
+
+
+def library_clean_up() -> None:
+    """Parity with aws_compression_library_clean_up."""
+    global _library_initialized
+    _library_initialized = False
+
+
+def library_is_initialized() -> bool:
+    return _library_initialized
+
+
+__all__ = [
+    "BlockIndex",
+    "CodeSpec",
+    "CompressionError",
+    "HuffmanTable",
+    "ShortBufferError",
+    "TableError",
+    "UnknownSymbolError",
+    "decode_indexed",
+    "encode",
+    "encode_with_index",
+    "from_reference",
+    "get_encoded_length",
+    "library_clean_up",
+    "library_init",
+    "library_is_initialized",
+    "load_hpack_table",
+    "load_static_test_table",
+    "make_canonical",
+]

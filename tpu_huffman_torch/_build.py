@@ -1,0 +1,124 @@
+"""Build and load the port's CUDA kernels at first use.
+
+``nvcc`` compiles every ``csrc/*.cu`` file for ``sm_90a`` into one shared
+library with a plain C interface, in ``tpu_huffman_torch/_build/`` (listed
+in ``.gitignore``). The library's name carries a hash of the sources and
+flags, so an edited kernel is rebuilt and a built one is reused. It is
+loaded with ``ctypes``; pointers and the stream go over as ``c_void_p`` and
+64-bit values as ``c_longlong``. Every C entry point returns
+``cudaGetLastError()`` after its launch, and :func:`check` raises when that
+is not 0. A failed build raises: there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+_CSRC = os.path.join(_PKG_DIR, "csrc")
+BUILD_DIR = os.path.join(_PKG_DIR, "_build")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas=-v",  # registers, shared memory and spills, into build_log
+)
+
+_P = ctypes.c_void_p
+_I64 = ctypes.c_longlong
+_I32 = ctypes.c_int
+# C entry point -> argument types (csrc/*.cu, extern "C"). Each takes the
+# CUDA device index first and the stream last.
+SIGNATURES = {
+    # device, syms, n, chunk, lengths, chunk_bits, stats, stream
+    "thc_encode_count": (_I32, _P, _I64, _I32, _P, _P, _P, _P),
+    # device, syms, n, chunk, patterns, lengths, chunk_offs, total_bits,
+    # eos_padding, words, n_words, stream
+    "thc_encode_pack": (
+        _I32, _P, _I64, _I32, _P, _P, _P, _I64, _I32, _P, _I64, _P,
+    ),
+    # device, words, n_words, bit_offs, n_syms, out_start, n_blocks, l0,
+    # root_bits, l1, l1_size, out, end_bits, bad, stream
+    "thc_chain_decode": (
+        _I32, _P, _I64, _P, _P, _P, _I64, _P, _I32, _P, _I64, _P, _P, _P, _P,
+    ),
+}
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = 0.0  # wall time of the build this process made (0 = reused)
+build_log = ""  # nvcc's output for that build
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home:
+        return os.path.join(home, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    return found or "/usr/local/cuda/bin/nvcc"
+
+
+def _sources() -> list[str]:
+    return sorted(glob.glob(os.path.join(_CSRC, "*.cu"))) + sorted(
+        glob.glob(os.path.join(_CSRC, "*.cuh"))
+    )
+
+
+def library_path() -> str:
+    """Path of the shared library for the sources as they stand."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return os.path.join(BUILD_DIR, f"libthc_{h.hexdigest()[:16]}.so")
+
+
+def _build(out: str) -> None:
+    global build_seconds, build_log
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cu = [p for p in _sources() if p.endswith(".cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: a process building at once sees all or nothing
+    build_seconds = time.perf_counter() - t0
+    build_log = proc.stdout + proc.stderr
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            path = library_path()
+            if not os.path.exists(path):
+                _build(path)
+            lib = ctypes.CDLL(path)
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(argtypes)
+                fn.restype = ctypes.c_int
+            lib.thc_error_string.argtypes = [ctypes.c_int]
+            lib.thc_error_string.restype = ctypes.c_char_p
+            _lib = lib
+        return _lib
+
+
+def check(name: str, err: int) -> None:
+    """Raise if a C entry point reported a CUDA error for its launch."""
+    if err != 0:
+        msg = load().thc_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} at launch: {msg}")

@@ -1,0 +1,52 @@
+"""Bit stream <-> word tensors (ports ``tpu_huffman/ops/bitpack.py`` and the
+on-device byteswap ``selfsync._words_from_u8_dev``).
+
+Stream bit ``j`` lives in word ``j >> 5`` at bit ``31 - (j & 31)``, and the
+words serialise big-endian, as in the JAX package. torch's ``uint32`` lacks
+most operators, so a word tensor is ``int32`` holding the 32 bits as they
+are; the plain versions widen it to ``int64`` (:func:`u32`) and mask every
+result back to 32 bits.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+
+
+def bytes_to_words(b: torch.Tensor) -> torch.Tensor:
+    """Big-endian pack: uint8[4W] -> int32[W] (the length must be 4-aligned)."""
+    return b.reshape(-1, 4).flip(-1).contiguous().view(torch.int32).reshape(-1)
+
+
+def words_to_bytes(w: torch.Tensor) -> torch.Tensor:
+    """Big-endian unpack: int32[W] -> uint8[4W]."""
+    return w.contiguous().view(torch.uint8).reshape(-1, 4).flip(-1).reshape(-1)
+
+
+def u32(w: torch.Tensor) -> torch.Tensor:
+    """int32 words -> their unsigned values in int64."""
+    return w.to(torch.int64) & MASK32
+
+
+def i32(x: torch.Tensor) -> torch.Tensor:
+    """Unsigned 32-bit values held in int64 -> int32 words, bit for bit."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
+
+
+def extract_windows(words64: torch.Tensor, bit_offsets: torch.Tensor) -> torch.Tensor:
+    """32-bit MSB-aligned windows starting at ``bit_offsets`` (int64).
+
+    ``words64`` holds the stream's words as unsigned values in int64 (see
+    :func:`u32`). Words past its end read as zero, so windows near the tail
+    see zero padding, as the reference decoder does.
+    """
+    n = words64.numel()
+    idx = bit_offsets >> 5
+    sh = bit_offsets & 31
+
+    def at(i):
+        return torch.where(i < n, words64[i.clamp(max=n - 1)], 0)
+
+    return ((at(idx) << sh) | (at(idx + 1) >> (32 - sh))) & MASK32

@@ -1,0 +1,74 @@
+"""Block-parallel indexed decode (ports ``tpu_huffman/ops/decode.py``:
+``BlockIndex`` and ``decode_indexed``).
+
+The encoder's :class:`BlockIndex` gives every block's starting bit, so the
+blocks decode independently (``ops/chain_decode.py``). The index lives
+outside the byte stream, which stays bit-identical to the reference's.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..errors import UnknownSymbolError
+from ..tables import HuffmanTable
+from . import chain_decode
+from .bitpack import bytes_to_words
+from .chain_decode import lut_lookup  # noqa: F401  (public, as in the JAX package)
+from .encode import DeviceTable, resolve_device, stage_bytes
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockIndex:
+    """Parallel-decode metadata emitted alongside an encoded stream (the same
+    fields as the JAX package's)."""
+
+    symbols_per_block: int
+    bit_offsets: np.ndarray  # int64[B]: absolute start bit of each block
+    n_symbols: np.ndarray  # int32[B]: symbol count per block
+    total_symbols: int
+    total_bits: int  # unpadded bit length of the stream
+    max_code_len: int = 0  # the data's longest code (0 = unknown)
+
+
+def decode_indexed(data, index: BlockIndex, table: HuffmanTable,
+                   device="cuda") -> bytes:
+    """Block-parallel decode of ``data`` with a trusted BlockIndex.
+
+    Blocks may hold any number of symbols (ragged indexes included); block b
+    fills the output after the symbols of blocks 0..b-1. Raises
+    UnknownSymbolError when a window inside a block matches no code.
+    """
+    dev = resolve_device(device)
+    offs = np.asarray(index.bit_offsets, dtype=np.int64).reshape(-1)
+    counts = np.asarray(index.n_symbols, dtype=np.int64).reshape(-1)
+    if offs.size != counts.size:
+        raise ValueError("index bit_offsets and n_symbols differ in length")
+    if (counts < 0).any() or int(counts.sum()) != index.total_symbols:
+        raise ValueError("index n_symbols do not add up to total_symbols")
+    if index.total_symbols == 0:
+        return b""
+    raw = stage_bytes(data, dev)
+    nbytes = raw.numel()
+    if offs.min() < 0 or offs.max() > 8 * nbytes:
+        raise ValueError("index bit offsets lie outside the stream")
+    # Whole words; both decoders read words past the last one as zeros.
+    raw = torch.cat([raw, torch.zeros((-nbytes) % 4, dtype=torch.uint8, device=dev)])
+    words = bytes_to_words(raw)
+    out_start = np.zeros_like(counts)
+    np.cumsum(counts[:-1], out=out_start[1:])
+    out, _end, bad = chain_decode.decode_chains(
+        words,
+        torch.tensor(offs, device=dev),
+        torch.tensor(counts.astype(np.int32), device=dev),
+        torch.tensor(out_start, device=dev),
+        index.total_symbols,
+        DeviceTable.for_table(table, dev),
+    )
+    out_host = out.cpu()
+    if int(bad.item()):
+        raise UnknownSymbolError()
+    return out_host.numpy().tobytes()

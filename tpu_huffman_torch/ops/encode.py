@@ -1,0 +1,190 @@
+"""One-shot Huffman encode (ports ``tpu_huffman/ops/encode.py``).
+
+``encode`` and ``encode_with_index`` stage the input bytes on the device,
+run the count kernel, take the exclusive prefix of chunk bit totals with an
+int64 ``torch.cumsum``, read the stream's length and the first unknown
+symbol back in one transfer, and run the pack kernel
+(``ops/pack_encode.py``). The bytes are bit-identical to the reference
+encoder's, including the EOS padding of the final partial byte; the block
+index comes from the same prefix sum.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..errors import UnknownSymbolError
+from ..tables import HuffmanTable
+from . import pack_encode
+from .bitpack import words_to_bytes
+
+DEFAULT_EOS_PADDING = 0xFF
+# One index block per 256 symbols: the granularity the TPU path picks for
+# the static table (pallas_encode.index_granularity).
+DEFAULT_BLOCK_SYMBOLS = 256
+
+
+def resolve_device(device) -> torch.device:
+    """The device a public call runs on. A CUDA device that is not there is
+    an error, never a reason to run on the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                f"device {device!r} requested but torch.cuda.is_available() is False"
+            )
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+    return dev
+
+
+def stage_bytes(data, dev: torch.device) -> torch.Tensor:
+    """``data`` (bytes, bytearray, uint8 numpy array or uint8 tensor) as a
+    contiguous 1-D uint8 tensor on ``dev``."""
+    if isinstance(data, torch.Tensor):
+        if data.dtype != torch.uint8:
+            raise ValueError("a tensor input must be uint8")
+        return data.reshape(-1).to(dev).contiguous()
+    if isinstance(data, (bytes, bytearray, memoryview)):
+        src = np.frombuffer(data, dtype=np.uint8)
+    else:
+        src = np.asarray(data, dtype=np.uint8).reshape(-1)
+    # a private, writable copy: torch.from_numpy shares the buffer
+    return torch.from_numpy(src.copy()).to(dev)
+
+
+class DeviceTable:
+    """A table's arrays staged on one device, cached per (table, device).
+
+    Encode: ``patterns`` (uint32 bits in int32) and ``lengths`` (int32).
+    Decode, for the kernel: ``l0``/``l1``, each entry packed into one int32
+    (see csrc/chain_decode.cu); for the plain version: ``l0_bits``,
+    ``l0_val``, ``l1_bits``, ``l1_val`` in int64.
+    """
+
+    _cache: dict = {}
+
+    def __init__(self, table: HuffmanTable, dev: torch.device):
+        self.table = table
+        self.root_bits = int(table.root_bits)
+
+        def put(a, dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+
+        self.patterns = put(table.patterns.astype(np.uint32).view(np.int32), torch.int32)
+        self.lengths = put(table.lengths, torch.int32)
+        l0_bits = table.l0_bits.astype(np.int64)
+        l0_val = table.l0_val.astype(np.int64)
+        l1_bits = table.l1_bits.astype(np.int64)
+        l1_val = table.l1_val.astype(np.int64)
+        if l1_bits.size >= 1 << 23:
+            raise ValueError("level-1 LUT too large for the packed entry form")
+        self.l0 = put((l0_val << 8) | (l0_bits & 0xFF), torch.int32)
+        self.l1 = put((l1_val << 8) | l1_bits, torch.int32)
+        self.l0_bits = put(l0_bits, torch.int64)
+        self.l0_val = put(l0_val, torch.int64)
+        self.l1_bits = put(l1_bits, torch.int64)
+        self.l1_val = put(l1_val, torch.int64)
+
+    @staticmethod
+    def for_table(table: HuffmanTable, dev: torch.device) -> "DeviceTable":
+        key = (id(table), str(dev))
+        dt = DeviceTable._cache.get(key)
+        if dt is None or dt.table is not table:
+            dt = DeviceTable(table, dev)
+            DeviceTable._cache[key] = dt
+        return dt
+
+
+def _encode_device(symbols: torch.Tensor, dt: DeviceTable, eos_padding: int,
+                   chunk: int):
+    """Count, prefix, check, pack. Returns (words int32, total_bits,
+    padded_bits, chunk_offs int64, longest code in the data)."""
+    n = symbols.numel()
+    chunk_bits, stats = pack_encode.count(symbols, dt, chunk)
+    incl = torch.cumsum(chunk_bits, 0, dtype=torch.int64)
+    chunk_offs = incl - chunk_bits
+    first_bad, max_len, total_bits = torch.cat([stats, incl[-1:]]).tolist()
+    if first_bad < n:
+        raise UnknownSymbolError(index=first_bad, symbol=int(symbols[first_bad]))
+    _pad, pad_len = pack_encode.pad_code(total_bits, eos_padding)
+    padded_bits = total_bits + pad_len
+    words = pack_encode.pack(
+        symbols, dt, chunk, chunk_offs, total_bits, eos_padding,
+        -(-padded_bits // 32),
+    )
+    return words, total_bits, padded_bits, chunk_offs, max_len
+
+
+def _to_bytes(words: torch.Tensor, padded_bits: int) -> bytes:
+    return words_to_bytes(words)[: padded_bits // 8].cpu().numpy().tobytes()
+
+
+def encode(data, table: HuffmanTable, eos_padding: int = DEFAULT_EOS_PADDING,
+           device="cuda") -> bytes:
+    """One-shot encode: bytes in, reference-bit-identical compressed bytes out.
+
+    Raises UnknownSymbolError (with the input index and symbol of the first
+    symbol that has no code).
+    """
+    dev = resolve_device(device)
+    symbols = stage_bytes(data, dev)
+    if symbols.numel() == 0:
+        return b""
+    dt = DeviceTable.for_table(table, dev)
+    words, _total, padded_bits, _offs, _max = _encode_device(
+        symbols, dt, int(eos_padding) & 0xFF, pack_encode.chunk_symbols(DEFAULT_BLOCK_SYMBOLS)
+    )
+    return _to_bytes(words, padded_bits)
+
+
+def encode_with_index(data, table: HuffmanTable,
+                      eos_padding: int = DEFAULT_EOS_PADDING,
+                      block_symbols: int = DEFAULT_BLOCK_SYMBOLS,
+                      device="cuda"):
+    """Encode and return (bytes, BlockIndex) for block-parallel decode.
+
+    The bytes are identical to :func:`encode`; the index is side metadata:
+    the starting bit of every ``block_symbols`` symbols.
+    """
+    from .decode import BlockIndex  # decode imports this module
+
+    dev = resolve_device(device)
+    chunk = pack_encode.chunk_symbols(block_symbols)
+    symbols = stage_bytes(data, dev)
+    n = symbols.numel()
+    if n == 0:
+        return b"", BlockIndex(
+            block_symbols, np.zeros(0, np.int64), np.zeros(0, np.int32), 0, 0
+        )
+    dt = DeviceTable.for_table(table, dev)
+    words, total_bits, padded_bits, chunk_offs, max_len = _encode_device(
+        symbols, dt, int(eos_padding) & 0xFF, chunk
+    )
+    n_blocks = -(-n // block_symbols)
+    n_syms = np.full(n_blocks, block_symbols, dtype=np.int32)
+    n_syms[-1] = n - (n_blocks - 1) * block_symbols
+    index = BlockIndex(
+        symbols_per_block=block_symbols,
+        bit_offsets=chunk_offs[:: block_symbols // chunk].cpu().numpy(),
+        n_symbols=n_syms,
+        total_symbols=n,
+        total_bits=total_bits,
+        max_code_len=max_len,
+    )
+    return _to_bytes(words, padded_bits), index
+
+
+def get_encoded_length(data, table: HuffmanTable) -> int:
+    """Byte length of ``data`` once encoded. Unknown symbols add 0 bits, as
+    in the reference's dry run (it never raises). Host-side, like the JAX
+    package's."""
+    if isinstance(data, torch.Tensor):
+        symbols = data.reshape(-1).cpu().numpy()
+    elif isinstance(data, (bytes, bytearray, memoryview)):
+        symbols = np.frombuffer(data, dtype=np.uint8)
+    else:
+        symbols = np.asarray(data, dtype=np.uint8)
+    bits = int(table.lengths[symbols].astype(np.int64).sum())
+    return (bits + 7) // 8

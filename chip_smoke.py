@@ -6,26 +6,43 @@ Run from the repository root with no arguments:
 
 Phases (any failure raises and the script exits non-zero):
   1. the card (name and power limit from nvidia-smi, compute capability
-     9.0), torch and CUDA versions; build the kernels and print the build time;
+     9.0), torch and CUDA versions; build the kernels (one nvcc per source,
+     all at once) and print the build time;
   2. each kernel against its plain PyTorch version on the same CUDA tensors
-     at main-path shapes: 8 MiB of random bytes (seed 2024) on the static
-     table at block_symbols 256 and 512, and on the HPACK table (codes up to
-     30 bits) at 256; every output must be bit-identical;
-  3. the golden vectors through the public encode/encode_with_index, and an
-     unknown symbol raising with the right index;
-  4. the main path at full size through the public API (launch counters
-     reset just before, read just after): the static table at 8 and 64 MiB
-     of random bytes and the HPACK table at 8 MiB of header text, each
-     encode_with_index then decode_indexed; round trips equal, every kernel
-     launched, encoded bytes and index equal to the plain version's;
+     at main-path shapes, every output bit-identical:
+     - count, pack, chain_decode: 8 MiB of random bytes (seed 2024) on the
+       static table at block_symbols 256 and 512, and on the HPACK table
+       (codes up to 30 bits) at 256;
+     - selfsync_decode: the stream of those 8 MiB on the static table, the
+       same bytes taken as a stream (a foreign stream full of invalid
+       windows), and the HPACK stream of them (30-bit codes, level-1 LUT in
+       global memory), each on pass 0 (segment-aligned entries) and on the
+       converged pass;
+     - stream_decode at 4 KiB: no cap, a cap mid-stream (OUTPUT_FULL), and
+       a zero blob (UNKNOWN_SYMBOL);
+  3. the golden vectors through the public encode/encode_with_index and
+     decode; an unknown symbol raising with the right index on encode and
+     zeros raising on decode; max_output giving the first bytes of 1 MiB;
+  4. two paths at full size through the public API, each with the launch
+     counters reset just before it and read just after, every kernel of the
+     path launched: the indexed path (encode_with_index then
+     decode_indexed) and the foreign-stream path (decode of the same
+     stream with no index), on the static table at 8 and 64 MiB of random
+     bytes and the HPACK table at 8 MiB of header text; the decoded bytes
+     equal the input, and the encoded bytes and index equal the plain
+     version's; the fixpoint passes of each decode are printed;
   5. timings with CUDA events at 8 MiB: each kernel's wrapper beside its
      plain version (median of 10 after warm-up), each kernel alone by
-     torch.profiler, and encode_with_index + decode_indexed end to end from
-     host bytes, in GB/s of input bytes.
+     torch.profiler, the device time of one decode by kernel, and the
+     public calls end to end from host bytes, in GB/s of plaintext.
 
 The last line is one JSON object {"ok": true, "device": {...}}; the line
-before it is the {"kernels": [...]} summary. Without a CUDA device the
-script exits non-zero and prints no result. It imports nothing of JAX.
+before it is the {"kernels": [...]} summary, with each kernel's bound: the
+larger of the bytes it must move (each input read once, each output written
+once) over 3.35 TB/s and its integer operations over 67 T/s (the card's
+float32 rate outside the tensor cores, the published peak nearest to
+32-bit integer work). Without a CUDA device the script exits non-zero and
+prints no result. It imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -44,6 +61,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MIB = 1 << 20
 SEED = 2024  # bench.py's corpus seed
 REPS = 10
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
+# The data sheet gives no 32-bit integer rate; its float32 rate outside the
+# tensor cores is the nearest published peak.
+SCALAR_OPS_PER_S = 67e12
+# Integer operations per symbol in each kernel's loop body (a table gather,
+# shifts, compares, adds, the store), counted from the sources in csrc/.
+OPS_PER_SYMBOL = {"encode_count": 3, "encode_pack": 12, "chain_decode": 10,
+                  "selfsync_decode": 10, "stream_decode": 10}
 
 
 def hpack_corpus(n: int) -> bytes:
@@ -86,6 +111,14 @@ def _median_ms(torch, fn, reps: int = REPS, inner: int = 5) -> float:
     return statistics.median(times)
 
 
+def _device_us(evt) -> float:
+    """An averaged profiler event's device time in us (the attribute's name
+    differs between torch versions)."""
+    if hasattr(evt, "device_time_total"):
+        return evt.device_time_total
+    return evt.cuda_time_total
+
+
 def _profiled_kernel_ms(torch, calls, reps: int = REPS) -> dict:
     """Device time per launch of each named CUDA kernel, by torch.profiler,
     over reps runs of every call: the kernel alone, without the wrapper's
@@ -105,8 +138,7 @@ def _profiled_kernel_ms(torch, calls, reps: int = REPS) -> dict:
     for evt in prof.key_averages():
         for name in calls:
             if f"{name}_kernel" in evt.key and evt.count:
-                total_us = getattr(evt, "device_time_total", 0) or evt.cuda_time_total
-                out[name] = total_us / evt.count / 1e3
+                out[name] = _device_us(evt) / evt.count / 1e3
     return out
 
 
@@ -120,6 +152,31 @@ def _median_wall_ms(torch, fn, reps: int = REPS) -> float:
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times)
+
+
+def _device_ms_by_kernel(torch, fn, calls: int = 3) -> dict:
+    """Device time per fn() call of each CUDA kernel and copy, by
+    torch.profiler over `calls` calls after one warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        if _device_us(evt):
+            out[evt.key] = _device_us(evt) / calls / 1e3
+    return out
+
+
+def _bound(nbytes: int, ops: int) -> tuple[float, str]:
+    """The least time the card could take (ms), and what bounds it."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = ops / SCALAR_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def _max_abs_err(torch, a, b) -> int:
@@ -140,7 +197,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     import tpu_huffman_torch as tt
     from tpu_huffman_torch import _build
-    from tpu_huffman_torch.ops import chain_decode, pack_encode
+    from tpu_huffman_torch.ops import chain_decode, pack_encode, selfsync, stream_decode
+    from tpu_huffman_torch.ops.bitpack import stage_words
     from tpu_huffman_torch.ops.encode import DeviceTable, _encode_device
 
     dev = torch.device("cuda")
@@ -215,6 +273,53 @@ def main() -> int:
               f"to plain ({total} bits, {nb} blocks, max code {int(st[1])})")
         shapes[table.name, K] = (dt, chunk, offs, total, n_words, words,
                                  block_offs, nsyms, out_start)
+
+    # selfsync_decode on pass 0 (segment-aligned entries, so off the
+    # codeword chain) and on the converged pass, for three foreign streams.
+    def on_card(b: bytes):
+        return stage_words(torch.frombuffer(bytearray(b), dtype=torch.uint8).to(dev))
+
+    errs.update(selfsync_decode=0, stream_decode=0)
+    enc_static = tt.encode(data8, static)
+    foreign = {}
+    for name, table, enc in (("static", static, enc_static),
+                             ("static random bytes as the stream", static, data8),
+                             ("hpack", hpack, tt.encode(data8, hpack))):
+        dt = DeviceTable.for_table(table, dev)
+        words = on_card(enc)
+        n_segs, seg_bits = selfsync._plan_segments(8 * len(enc), selfsync.SEG_WORDS)
+        max_syms = selfsync.max_symbols(table, seg_bits)
+        entries, passes = selfsync._fixpoint(words, n_segs, seg_bits, 0, max_syms, dt)[4:]
+        pass0 = torch.zeros(n_segs, dtype=torch.int32, device=dev)
+        for label, ent in (("pass 0", pass0), (f"converged (pass {passes})", entries)):
+            got = selfsync.decode_segments(words, ent, seg_bits, max_syms, dt)
+            want = selfsync.decode_segments_plain(words, ent, seg_bits, max_syms, dt)
+            torch.cuda.synchronize()
+            e = max(_max_abs_err(torch, a, b) for a, b in zip(got, want))
+            errs["selfsync_decode"] = max(errs["selfsync_decode"], e)
+            print(f"phase 2 selfsync_decode {name}, {label}: max_abs_err {e} "
+                  f"({n_segs} segments of {seg_bits} bits, {int(got[1].sum())} symbols, "
+                  f"{int((got[3] != 0).sum())} segments with an invalid window)")
+        foreign[name] = (dt, words, n_segs, seg_bits, max_syms, entries, len(enc))
+
+    # stream_decode at 4 KiB: each stop rule.
+    dt = DeviceTable.for_table(static, dev)
+    head = on_card(enc_static[:4096])
+    for label, words, cap, want_status in (
+        ("no cap", head, None, stream_decode.STATUS_OK),
+        ("cap 1000", head, 1000, stream_decode.STATUS_OUTPUT_FULL),
+        ("zero blob", on_card(bytes(4096)), None, stream_decode.STATUS_UNKNOWN_SYMBOL),
+    ):
+        got = stream_decode.decode_stream(words, 0, 8 * 4096, cap, dt)
+        want = stream_decode.decode_stream_plain(words, 0, 8 * 4096, cap, dt)
+        torch.cuda.synchronize()
+        e = max(_max_abs_err(torch, a, b) for a, b in zip(got, want))
+        errs["stream_decode"] = max(errs["stream_decode"], e)
+        n_dec, end_bit, status = got[1].tolist()
+        if status != want_status or got[0][:n_dec].cpu().numpy().tobytes() != data8[:n_dec]:
+            raise AssertionError(f"stream_decode {label}: status {status}, {n_dec} symbols")
+        print(f"phase 2 stream_decode {label}: max_abs_err {e} ({n_dec} symbols, "
+              f"end bit {end_bit}, status {status})")
     if any(errs.values()):
         raise AssertionError(f"kernels differ from their plain versions: {errs}")
 
@@ -232,9 +337,12 @@ def main() -> int:
         enc, idx = tt.encode_with_index(plain_bytes, static)
         if enc != want or tt.decode_indexed(enc, idx, static) != plain_bytes:
             raise AssertionError(f"encode_with_index({plain_bytes!r}) != golden")
+        if tt.decode(want, static) != plain_bytes:
+            raise AssertionError(f"decode of the golden bytes of {plain_bytes!r}")
     even, even_len = golden.EVEN_BYTES
-    if len(tt.encode(even, static)) != even_len:
-        raise AssertionError("EVEN_BYTES length")
+    enc_even = tt.encode(even, static)
+    if len(enc_even) != even_len or tt.decode(enc_even, static) != even:
+        raise AssertionError("EVEN_BYTES")
     ab = tt.make_canonical({65: 1, 66: 2})
     bad_input = b"AB" * 5000 + b"C" + b"AB" * 10
     try:
@@ -244,17 +352,34 @@ def main() -> int:
             raise AssertionError(f"unknown symbol at {exc.index}/{exc.symbol}") from exc
     else:
         raise AssertionError("unknown symbol did not raise")
-    print("phase 3: golden vectors and unknown-symbol index ok")
+    try:
+        tt.decode(bytes(MIB), static)  # zeros match no code of the static table
+    except tt.UnknownSymbolError:
+        pass
+    else:
+        raise AssertionError("decode of zeros did not raise")
+    data1 = data8[:MIB]
+    enc1 = tt.encode(data1, static)
+    for k in (0, 1, 4097, 65536):
+        if tt.decode(enc1, static, max_output=k) != data1[:k]:
+            raise AssertionError(f"decode with max_output={k}")
+    print("phase 3: golden vectors, unknown-symbol index, decode of zeros raising, "
+          "max_output ok")
 
-    # ---- 4. the main path at full size -----------------------------------
+    # ---- 4. the two paths at full size ------------------------------------
     data64 = np.random.default_rng(SEED + 1).integers(
         0, 256, size=64 * MIB, dtype=np.uint8).tobytes()
     hdrs = hpack_corpus(8 * MIB)
     runs = [("static 8 MiB", static, data8), ("static 64 MiB", static, data64),
             ("hpack 8 MiB", hpack, hdrs)]
-    for counter in (pack_encode.launches, chain_decode.launches):
-        for k in counter:
-            counter[k] = 0
+
+    def reset(*counters):
+        for counter in counters:
+            for k in counter:
+                counter[k] = 0
+
+    # the indexed path: encode_with_index, then decode_indexed
+    reset(pack_encode.launches, chain_decode.launches)
     results = []
     for name, table, data in runs:
         t0 = time.perf_counter()
@@ -263,12 +388,31 @@ def main() -> int:
         secs = time.perf_counter() - t0
         results.append((name, table, data, enc, idx, dec, secs))
     launches = {**pack_encode.launches, **chain_decode.launches}
-    print(f"phase 4 launches: {launches}")
+    print(f"phase 4 indexed path launches: {launches}")
     if not all(launches.values()):
-        raise AssertionError(f"a kernel of the main path never ran: {launches}")
-    for name, table, data, enc, idx, dec, secs in results:
+        raise AssertionError(f"a kernel of the indexed path never ran: {launches}")
+
+    # the foreign-stream path: decode of the same streams, with no index
+    reset(selfsync.launches, stream_decode.launches)
+    foreign_runs = []
+    for name, table, data, enc, _idx, _dec, _secs in results:
+        before = selfsync.launches["selfsync_decode"]
+        t0 = time.perf_counter()
+        out = tt.decode(enc, table)
+        secs = time.perf_counter() - t0
+        foreign_runs.append((name, out, secs, selfsync.launches["selfsync_decode"] - before))
+    foreign_launches = {**selfsync.launches, **stream_decode.launches}
+    print(f"phase 4 foreign-stream path launches: {foreign_launches}")
+    if not all(foreign_launches.values()):
+        raise AssertionError(f"a kernel of the foreign-stream path never ran: {foreign_launches}")
+    launches.update(foreign_launches)
+
+    for (name, table, data, enc, idx, dec, secs), (_, out, f_secs, passes) in zip(
+            results, foreign_runs):
         if dec != data:
             raise AssertionError(f"{name}: round trip differs")
+        if out != data:
+            raise AssertionError(f"{name}: decode of the stream differs")
         enc_p, idx_p = tt.encode_with_index(data, table, device="cpu")
         if enc != enc_p:
             raise AssertionError(f"{name}: encoded bytes differ from the plain version's")
@@ -279,13 +423,20 @@ def main() -> int:
                 and np.array_equal(idx.n_symbols, idx_p.n_symbols)):
             raise AssertionError(f"{name}: index arrays differ")
         print(f"phase 4 {name}: round trip ok, {len(data)} -> {len(enc)} bytes, "
-              f"max code {idx.max_code_len}, {secs * 1e3:.1f} ms first call")
+              f"max code {idx.max_code_len}, {secs * 1e3:.1f} ms first call; "
+              f"decode ok, {passes} fixpoint passes, {f_secs * 1e3:.1f} ms first call")
 
     # ---- 5. timings at 8 MiB ---------------------------------------------
     dt, chunk, offs, total, n_words, words, block_offs, nsyms, out_start = (
         shapes[static.name, 256])
     n = sym.numel()
     gbs = lambda ms: n / (ms * 1e-3) / 1e9  # noqa: E731
+    f_dt, f_words, n_segs, seg_bits, max_syms, entries, f_nbytes = foreign["static"]
+    _syms, counts, exits, _bad = selfsync.decode_segments(f_words, entries, seg_bits,
+                                                          max_syms, f_dt)
+    tail_start = n_segs * seg_bits + int(exits[-1]) - seg_bits
+    n_tail, tail_end, _status = stream_decode.decode_stream(
+        f_words, tail_start, 8 * f_nbytes, None, f_dt)[1].tolist()
     timed = {
         "encode_count": (
             lambda: pack_encode.count(sym, dt, chunk),
@@ -299,6 +450,36 @@ def main() -> int:
             lambda: chain_decode.decode_chains(words, block_offs, nsyms, out_start, n, dt),
             lambda: chain_decode.decode_chains_plain(words, block_offs, nsyms, out_start, n, dt),
         ),
+        "selfsync_decode": (
+            lambda: selfsync.decode_segments(f_words, entries, seg_bits, max_syms, f_dt),
+            lambda: selfsync.decode_segments_plain(f_words, entries, seg_bits, max_syms, f_dt),
+        ),
+        "stream_decode": (
+            lambda: stream_decode.decode_stream(f_words, tail_start, 8 * f_nbytes, None, f_dt),
+            lambda: stream_decode.decode_stream_plain(
+                f_words, tail_start, 8 * f_nbytes, None, f_dt),
+        ),
+    }
+    where = {
+        "encode_count": "8 MiB, block_symbols 256",
+        "encode_pack": "8 MiB, block_symbols 256",
+        "chain_decode": "8 MiB, block_symbols 256",
+        "selfsync_decode": f"one converged pass over the 8 MiB stream, {n_segs} segments",
+        "stream_decode": f"the tail of the 8 MiB stream, {n_tail} symbols",
+    }
+    n_body = int(counts.sum())
+    # (bytes moved, integer operations) of each timed call
+    work = {
+        "encode_count": (n + 4 * offs.numel() + 16 + 4 * 256, OPS_PER_SYMBOL["encode_count"] * n),
+        "encode_pack": (n + 8 * offs.numel() + 8 * 256 + 4 * n_words,
+                        OPS_PER_SYMBOL["encode_pack"] * n),
+        "chain_decode": (4 * n_words + 20 * block_offs.numel() + n + 8 * block_offs.numel()
+                         + 4 + 4 * dt.l0.numel(), OPS_PER_SYMBOL["chain_decode"] * n),
+        "selfsync_decode": (4 * min(f_words.numel(), n_segs * selfsync.SEG_WORDS + 1)
+                            + 4 * n_segs + n_body + 12 * n_segs + 4 * f_dt.l0.numel(),
+                            OPS_PER_SYMBOL["selfsync_decode"] * n_body),
+        "stream_decode": (4 * (tail_end // 32 - tail_start // 32 + 2) + n_tail + 24
+                          + 4 * f_dt.l0.numel(), OPS_PER_SYMBOL["stream_decode"] * n_tail),
     }
     ms = {}
     for name, (kernel, plain) in timed.items():
@@ -308,9 +489,9 @@ def main() -> int:
         k2 = _median_ms(torch, kernel)
         p2 = _median_ms(torch, plain)
         ms[name] = (min(k1, k2), min(p1, p2))
+        bound_ms, bound_by = _bound(*work[name])
         print(f"phase 5 {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-              f"{p2:.4f} ms at 8 MiB, block_symbols 256 "
-              f"(kernel {gbs(ms[name][0]):.2f} GB/s, plain {gbs(ms[name][1]):.2f} GB/s)")
+              f"{p2:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} ({where[name]})")
     kernel_only = _profiled_kernel_ms(torch, {k: v[0] for k, v in timed.items()})
     for name in timed:
         got = kernel_only.get(name)
@@ -330,6 +511,19 @@ def main() -> int:
     print(f"phase 5 end to end from host bytes at 8 MiB: encode_with_index "
           f"{enc_ms:.3f} ms ({gbs(enc_ms):.3f} GB/s), decode_indexed {dec_ms:.3f} ms "
           f"({gbs(dec_ms):.3f} GB/s), both {e2e_ms:.3f} ms ({gbs(e2e_ms):.3f} GB/s)")
+    before = selfsync.launches["selfsync_decode"]
+    foreign_ms = _median_wall_ms(torch, lambda: tt.decode(enc8, static))
+    passes = (selfsync.launches["selfsync_decode"] - before) / (REPS + 1)
+    print(f"phase 5 end to end from host bytes at 8 MiB: decode {foreign_ms:.3f} ms "
+          f"({gbs(foreign_ms):.3f} GB/s of plaintext), beside decode_indexed "
+          f"{dec_ms:.3f} ms on the same stream; {passes:g} fixpoint passes per call")
+    for label, fn, wall in (("round trip", round_trip, e2e_ms),
+                            ("decode", lambda: tt.decode(enc8, static), foreign_ms)):
+        by_kernel = _device_ms_by_kernel(torch, fn)
+        print(f"phase 5 {label} at 8 MiB, device ms per call by torch.profiler: "
+              f"{sum(by_kernel.values()):.4f} busy of {wall:.3f} wall")
+        for key, t in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
+            print(f"  {t:.4f} ms  {key[:100]}")
 
     kernels = [
         {"name": "encode_count", "route": "cuda",
@@ -342,10 +536,19 @@ def main() -> int:
          "source": "tpu_huffman_torch/csrc/chain_decode.cu",
          "replaces": "tpu_huffman/ops/pallas_decode.py:688",
          "also_replaces": "tpu_huffman/ops/pallas_decode.py:481"},
+        {"name": "selfsync_decode", "route": "cuda",
+         "source": "tpu_huffman_torch/csrc/selfsync_decode.cu",
+         "replaces": "tpu_huffman/ops/selfsync.py:51"},
+        {"name": "stream_decode", "route": "cuda",
+         "source": "tpu_huffman_torch/csrc/stream_decode.cu",
+         "replaces": "tpu_huffman/ops/decode.py:107"},
     ]
     for k in kernels:
+        bound_ms, bound_by = _bound(*work[k["name"]])
+        # No single PyTorch call computes any of these functions.
         k.update(launches=launches[k["name"]], max_abs_err=errs[k["name"]],
                  ms=ms[k["name"]][0], plain_ms=ms[k["name"]][1],
+                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                  kernel_only_ms=kernel_only.get(k["name"]))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2,9 +2,10 @@
 CUDA kernels for NVIDIA Hopper (sm_90a).
 
 A port of the JAX package ``tpu_huffman``, which stays the reference: the
-same bytes, block index and errors for the same inputs. This slice carries
-the main path: one-shot ``encode``/``encode_with_index`` and the
-block-parallel ``decode_indexed``. Public functions take ``device``
+same bytes, block index and errors for the same inputs. It carries the main
+path (one-shot ``encode``/``encode_with_index`` and the block-parallel
+``decode_indexed``) and the one-shot ``decode`` of foreign streams, which
+carry no index. Public functions take ``device``
 (default ``"cuda"``); on ``"cpu"`` they run the kernels' plain PyTorch
 versions. The kernels (``csrc/*.cu``) are built with ``nvcc`` at first use
 (``_build.py``). Nothing here imports JAX or the JAX package.
@@ -12,7 +13,8 @@ versions. The kernels (``csrc/*.cu``) are built with ``nvcc`` at first use
 Layer map (SURVEY.md §1):
   1. library runtime  -> library_init/clean_up + errors (errors.py)
   2. codec core       -> ops/encode.py, ops/decode.py and their kernels
-                         (ops/pack_encode.py, ops/chain_decode.py, csrc/)
+                         (ops/pack_encode.py, ops/chain_decode.py,
+                         ops/selfsync.py, ops/stream_decode.py, csrc/)
   3. symbol coder     -> tables.HuffmanTable
 """
 
@@ -26,6 +28,7 @@ from .errors import (
 )
 from .ops import (
     BlockIndex,
+    decode,
     decode_indexed,
     encode,
     encode_with_index,
@@ -70,6 +73,7 @@ __all__ = [
     "ShortBufferError",
     "TableError",
     "UnknownSymbolError",
+    "decode",
     "decode_indexed",
     "encode",
     "encode_with_index",

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels at first use.
 
-``nvcc`` compiles every ``csrc/*.cu`` file for ``sm_90a`` into one shared
-library with a plain C interface, in ``tpu_huffman_torch/_build/`` (listed
-in ``.gitignore``). The library's name carries a hash of the sources and
-flags, so an edited kernel is rebuilt and a built one is reused. It is
-loaded with ``ctypes``; pointers and the stream go over as ``c_void_p`` and
-64-bit values as ``c_longlong``. Every C entry point returns
+``nvcc`` compiles every ``csrc/*.cu`` file for ``sm_90a`` (one process per
+file, all at once) and links them into one shared library with a plain C
+interface, in ``tpu_huffman_torch/_build/`` (listed in ``.gitignore``).
+The library's name carries a hash of the sources and flags, so an edited
+kernel is rebuilt and a built one is reused. It is loaded with
+``ctypes``; pointers and the stream go over as ``c_void_p`` and 64-bit
+values as ``c_longlong``. Every C entry point returns
 ``cudaGetLastError()`` after its launch, and :func:`check` raises when that
 is not 0. A failed build raises: there is no fallback.
 """
@@ -26,9 +27,10 @@ _CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas=-v",  # registers, shared memory and spills, into build_log
 )
+NVCC_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -47,6 +49,17 @@ SIGNATURES = {
     # root_bits, l1, l1_size, out, end_bits, bad, stream
     "thc_chain_decode": (
         _I32, _P, _I64, _P, _P, _P, _I64, _P, _I32, _P, _I64, _P, _P, _P, _P,
+    ),
+    # device, words, n_words, entries, n_segs, seg_bits, max_syms, l0,
+    # root_bits, l1, l1_size, syms, counts, exits, bad, stream
+    "thc_selfsync_decode": (
+        _I32, _P, _I64, _P, _I64, _I32, _I32, _P, _I32, _P, _I64, _P, _P, _P,
+        _P, _P,
+    ),
+    # device, words, n_words, start_bit, total_bits, out_capacity, l0,
+    # root_bits, l1, l1_size, out, info, stream
+    "thc_stream_decode": (
+        _I32, _P, _I64, _I64, _I64, _I64, _P, _I32, _P, _I64, _P, _P, _P,
     ),
 }
 
@@ -72,7 +85,7 @@ def _sources() -> list[str]:
 
 def library_path() -> str:
     """Path of the shared library for the sources as they stand."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LINK_FLAGS).encode())
     for path in _sources():
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
@@ -80,22 +93,37 @@ def library_path() -> str:
     return os.path.join(BUILD_DIR, f"libthc_{h.hexdigest()[:16]}.so")
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Run the commands at once; raise if any fails. Returns their output."""
+    procs = [
+        subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for c in cmds
+    ]
+    outs = [p.communicate()[0] for p in procs]
+    for cmd, proc, text in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{text}")
+    return "".join(outs)
+
+
 def _build(out: str) -> None:
+    """One nvcc per source, all started together, then one link."""
     global build_seconds, build_log
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     cu = [p for p in _sources() if p.endswith(".cu")]
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *cu]
+    objs = [f"{tmp}.{os.path.basename(p)}.o" for p in cu]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}"
-        )
+    try:
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", "-o", o, p] for p, o in zip(cu, objs)])
+        log += _run_all([[_nvcc(), *NVCC_LINK_FLAGS, "-o", tmp, *objs]])
+    finally:
+        for o in objs:
+            if os.path.exists(o):
+                os.remove(o)
     os.replace(tmp, out)  # atomic: a process building at once sees all or nothing
     build_seconds = time.perf_counter() - t0
-    build_log = proc.stdout + proc.stderr
+    build_log = log
 
 
 def load() -> ctypes.CDLL:

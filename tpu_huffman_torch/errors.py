@@ -14,7 +14,8 @@ class CompressionError(Exception):
 
 class UnknownSymbolError(CompressionError):
     """A symbol with no code in the table was met (on encode), or a window
-    that no code matches was met inside an indexed block (on decode)."""
+    that no code matches was met inside an indexed block, or with 32 or more
+    bits left in a stream with no index (on decode)."""
 
     def __init__(self, index: int | None = None, symbol: int | None = None):
         self.index = index

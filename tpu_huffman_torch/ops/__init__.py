@@ -1,8 +1,16 @@
-"""Encode and indexed decode on torch tensors, with their CUDA kernels
-(ports ``tpu_huffman/ops/``)."""
+"""Encode, indexed decode and foreign-stream decode on torch tensors, with
+their CUDA kernels (ports ``tpu_huffman/ops/``)."""
 
 from .bitpack import bytes_to_words, extract_windows, words_to_bytes
-from .decode import BlockIndex, decode_indexed, lut_lookup
+from .decode import (
+    STATUS_OK,
+    STATUS_OUTPUT_FULL,
+    STATUS_UNKNOWN_SYMBOL,
+    BlockIndex,
+    decode,
+    decode_indexed,
+    lut_lookup,
+)
 from .encode import (
     DEFAULT_BLOCK_SYMBOLS,
     DEFAULT_EOS_PADDING,
@@ -17,7 +25,11 @@ __all__ = [
     "DEFAULT_BLOCK_SYMBOLS",
     "DEFAULT_EOS_PADDING",
     "DeviceTable",
+    "STATUS_OK",
+    "STATUS_OUTPUT_FULL",
+    "STATUS_UNKNOWN_SYMBOL",
     "bytes_to_words",
+    "decode",
     "decode_indexed",
     "encode",
     "encode_with_index",

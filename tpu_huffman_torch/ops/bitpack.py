@@ -20,6 +20,15 @@ def bytes_to_words(b: torch.Tensor) -> torch.Tensor:
     return b.reshape(-1, 4).flip(-1).contiguous().view(torch.int32).reshape(-1)
 
 
+def stage_words(raw: torch.Tensor) -> torch.Tensor:
+    """uint8 stream bytes -> int32 words, the last word zero-padded. The
+    decoders read words past the last one as zeros too."""
+    pad = (-raw.numel()) % 4
+    if pad:
+        raw = torch.cat([raw, raw.new_zeros(pad)])
+    return bytes_to_words(raw)
+
+
 def words_to_bytes(w: torch.Tensor) -> torch.Tensor:
     """Big-endian unpack: int32[W] -> uint8[4W]."""
     return w.contiguous().view(torch.uint8).reshape(-1, 4).flip(-1).reshape(-1)

@@ -1,9 +1,16 @@
-"""Block-parallel indexed decode (ports ``tpu_huffman/ops/decode.py``:
-``BlockIndex`` and ``decode_indexed``).
+"""Decode (ports ``tpu_huffman/ops/decode.py``: ``BlockIndex``,
+``decode_indexed``, ``decode`` and the ``STATUS_*`` stop reasons).
 
-The encoder's :class:`BlockIndex` gives every block's starting bit, so the
-blocks decode independently (``ops/chain_decode.py``). The index lives
-outside the byte stream, which stays bit-identical to the reference's.
+Two ways to break the serial bit-offset dependency of Huffman decode:
+
+1. **Indexed** (:func:`decode_indexed`): the encoder's :class:`BlockIndex`
+   gives every block's starting bit, so the blocks decode independently
+   (``ops/chain_decode.py``). The index lives outside the byte stream,
+   which stays bit-identical to the reference's.
+2. **Foreign streams** (:func:`decode`), which carry no index: small inputs
+   and capped calls walk the stream on one thread with the reference's
+   termination rules (``ops/stream_decode.py``); larger ones decode in
+   self-synchronising segments (``ops/selfsync.py``).
 """
 
 from __future__ import annotations
@@ -15,10 +22,19 @@ import torch
 
 from ..errors import UnknownSymbolError
 from ..tables import HuffmanTable
-from . import chain_decode
-from .bitpack import bytes_to_words
+from . import chain_decode, selfsync, stream_decode
+from .bitpack import stage_words
 from .chain_decode import lut_lookup  # noqa: F401  (public, as in the JAX package)
 from .encode import DeviceTable, resolve_device, stage_bytes
+from .stream_decode import (  # noqa: F401  (public, as in the JAX package)
+    STATUS_OK,
+    STATUS_OUTPUT_FULL,
+    STATUS_UNKNOWN_SYMBOL,
+)
+
+# Inputs up to this many bytes are decoded by the sequential kernel alone,
+# as in the JAX package's ``_decode_impl``.
+SEQUENTIAL_MAX_BYTES = 2048
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,12 +68,9 @@ def decode_indexed(data, index: BlockIndex, table: HuffmanTable,
     if index.total_symbols == 0:
         return b""
     raw = stage_bytes(data, dev)
-    nbytes = raw.numel()
-    if offs.min() < 0 or offs.max() > 8 * nbytes:
+    if offs.min() < 0 or offs.max() > 8 * raw.numel():
         raise ValueError("index bit offsets lie outside the stream")
-    # Whole words; both decoders read words past the last one as zeros.
-    raw = torch.cat([raw, torch.zeros((-nbytes) % 4, dtype=torch.uint8, device=dev)])
-    words = bytes_to_words(raw)
+    words = stage_words(raw)
     out_start = np.zeros_like(counts)
     np.cumsum(counts[:-1], out=out_start[1:])
     out, _end, bad = chain_decode.decode_chains(
@@ -72,3 +85,28 @@ def decode_indexed(data, index: BlockIndex, table: HuffmanTable,
     if int(bad.item()):
         raise UnknownSymbolError()
     return out_host.numpy().tobytes()
+
+
+def decode(data, table: HuffmanTable, max_output: int | None = None,
+           device="cuda") -> bytes:
+    """One-shot decode of a foreign (un-indexed) stream.
+
+    Raises UnknownSymbolError exactly where the reference would
+    (source/huffman.c:246); trailing padding is skipped by the reference's
+    rules. With ``max_output``, decoding stops after that many symbols.
+    Inputs of any size decode in one call: absolute bit positions are int64.
+    """
+    dev = resolve_device(device)
+    raw = stage_bytes(data, dev)
+    if raw.numel() == 0:
+        return b""
+    if max_output is None and raw.numel() > SEQUENTIAL_MAX_BYTES:
+        return selfsync.selfsync_decode(raw, table, device=dev)
+    syms, info = stream_decode.decode_stream(
+        stage_words(raw), 0, 8 * raw.numel(), max_output,
+        DeviceTable.for_table(table, dev),
+    )
+    n, _end_bit, status = info.tolist()
+    if status == STATUS_UNKNOWN_SYMBOL:
+        raise UnknownSymbolError()
+    return syms[:n].cpu().numpy().tobytes()

@@ -34,7 +34,28 @@ Phases (any failure raises and the script exits non-zero):
   5. timings with CUDA events at 8 MiB: each kernel's wrapper beside its
      plain version (median of 10 after warm-up), each kernel alone by
      torch.profiler, the device time of one decode by kernel, and the
-     public calls end to end from host bytes, in GB/s of plaintext.
+     public calls end to end from host bytes, in GB/s of plaintext;
+  6. the streaming path (bench_suite.bench_streaming on the port): 64 MiB of
+     random bytes (seed 11) on the static table through a capped
+     HuffmanEncoder.encode_chunk loop at 1 MiB (its bytes equal tt.encode's),
+     a HuffmanDecoder fed 1 MiB input chunks, and a capped drain of 1 MiB
+     symbols a call after one feed (both give the input back), with the
+     launch counters reset before each loop and every kernel of the path
+     launched (count, pack, selfsync_decode with starts, stream_decode); the
+     calls, the passes per drain, the median ms per call of the first and
+     last eight calls of each loop, and 64 MiB / (t_enc + t_dec) in GB/s;
+     then selfsync_decode with starts against its plain version and timed
+     at one drain call's shape;
+  7. the protocol on the card: a 256 KiB stream at 4 KiB chunks, the
+     decoder's threshold lowered so that the self-sync words drains run;
+     every call's result, overflow_bits, leftover_bits and state equal
+     those on device="cpu";
+  8. C2: one uncapped encode_chunk of a stream just past 2^31 bits: no
+     segmenting (one pack launch), bytes equal tt.encode's, tt.decode gives
+     the input back;
+  9. HPACK: 1000 header strings, each a fresh stream encoded with
+     eos_padding 0xFF and decoded in 7-byte pieces, padding all ones; the
+     median us per string.
 
 The last line is one JSON object {"ok": true, "device": {...}}; the line
 before it is the {"kernels": [...]} summary, with each kernel's bound: the
@@ -48,6 +69,7 @@ prints no result. It imports nothing of JAX.
 from __future__ import annotations
 
 import ast
+import collections
 import json
 import os
 import statistics
@@ -68,7 +90,7 @@ SCALAR_OPS_PER_S = 67e12
 # Integer operations per symbol in each kernel's loop body (a table gather,
 # shifts, compares, adds, the store), counted from the sources in csrc/.
 OPS_PER_SYMBOL = {"encode_count": 3, "encode_pack": 12, "chain_decode": 10,
-                  "selfsync_decode": 10, "stream_decode": 10}
+                  "selfsync_decode": 10, "selfsync_decode_starts": 11, "stream_decode": 10}
 
 
 def hpack_corpus(n: int) -> bytes:
@@ -172,6 +194,25 @@ def _device_ms_by_kernel(torch, fn, calls: int = 3) -> dict:
     return out
 
 
+def _host_ms_by_function(fn, calls: int = 8, top: int = 6) -> list:
+    """Host time per fn() call of the functions that spend most of it
+    themselves, by cProfile over `calls` calls after one warm-up (cProfile
+    adds a little to every Python call)."""
+    import cProfile
+    import pstats
+
+    fn()
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(calls):
+        fn()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    rows = sorted(((v[2], k) for k, v in stats.items()), reverse=True)[:top]
+    return [(k[2] if k[0] == "~" else f"{os.path.basename(k[0])}:{k[2]}", t * 1e3 / calls)
+            for t, k in rows]
+
+
 def _bound(nbytes: int, ops: int) -> tuple[float, str]:
     """The least time the card could take (ms), and what bounds it."""
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -185,6 +226,290 @@ def _max_abs_err(torch, a, b) -> int:
     if a.numel() == 0:
         return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+
+
+def _reset(*counters) -> None:
+    """Set every launch count to 0."""
+    for counter in counters:
+        for k in counter:
+            counter[k] = 0
+
+
+def _first_last_ms(times: list) -> tuple[float, float]:
+    """Median ms of the first and of the last eight calls of a loop."""
+    return (statistics.median(times[:8]) * 1e3, statistics.median(times[-8:]) * 1e3)
+
+
+def _timed_calls(call, first_arg, next_arg, done):
+    """Run call(first_arg), then call(next_arg(result)) until done(result);
+    returns the results and each call's seconds (each call ends in a host
+    copy, so the host clock covers its device work)."""
+    results, times = [], []
+    arg = first_arg
+    while True:
+        t0 = time.perf_counter()
+        r = call(arg)
+        times.append(time.perf_counter() - t0)
+        results.append(r)
+        if done(r):
+            return results, times
+        arg = next_arg(r)
+
+
+def phase_streaming(torch, tt, table, counters, dev, stream_mb: int = 64,
+                    cap: int = MIB) -> dict:
+    """bench_suite.bench_streaming on the port: a capped encode_chunk loop,
+    a decoder fed 1 MiB input chunks, and a capped drain of 1 MiB symbols a
+    call after one feed, each with the launch counters reset before it."""
+    from tpu_huffman_torch.ops import selfsync
+
+    n = stream_mb * MIB
+    data = np.random.default_rng(11).integers(0, 256, size=n, dtype=np.uint8).tobytes()
+    want = tt.encode(data, table, device=dev)
+
+    def encode_loop(src):
+        enc = tt.HuffmanEncoder(table, device=dev)
+        view = memoryview(src)
+
+        def call(pending):
+            return enc.encode_chunk(pending, cap), pending
+
+        return _timed_calls(call, view, lambda rp: rp[1][rp[0].consumed:], lambda rp: rp[0].done)
+
+    def feed_loop(encoded):
+        dec = tt.HuffmanDecoder(table, device=dev)
+        offs = list(range(0, len(encoded), cap))
+        results, times = [], []
+        for i in offs:
+            t0 = time.perf_counter()
+            results.append(dec.decode_chunk(encoded[i:i + cap]))
+            times.append(time.perf_counter() - t0)
+        return results, times
+
+    def drain_loop(encoded):
+        dec = tt.HuffmanDecoder(table, device=dev)
+        passes = []
+
+        def call(feed):
+            before = selfsync.launches["selfsync_decode"]
+            r = dec.decode_chunk(feed, capacity=cap)
+            passes.append(selfsync.launches["selfsync_decode"] - before)
+            return r
+
+        results, times = _timed_calls(call, encoded, lambda r: b"", lambda r: r.done)
+        return results, times, passes
+
+    # warm-up: each loop once on a 4-chunk stream (allocator, kernel load)
+    warm = data[: 4 * cap]
+    warm_enc = b"".join(r.data for r, _ in encode_loop(warm)[0])
+    feed_loop(warm_enc)
+    drain_loop(warm_enc)
+
+    def launched() -> dict:
+        return {k: v for c in counters for k, v in c.items()}
+
+    # the three loops twice: host-clock times vary from run to run
+    for rep in (1, 2):
+        out = {}
+        _reset(*counters)
+        t0 = time.perf_counter()
+        enc_results, enc_times = encode_loop(data)
+        t_enc = time.perf_counter() - t0
+        out["encode"] = launched()
+        encoded = b"".join(r.data for r, _ in enc_results)
+        if encoded != want:
+            raise AssertionError("streaming encode differs from tt.encode of the same input")
+
+        _reset(*counters)
+        t0 = time.perf_counter()
+        feed_results, feed_times = feed_loop(encoded)
+        t_dec = time.perf_counter() - t0
+        out["feed"] = launched()
+        if b"".join(r.data for r in feed_results) != data or not feed_results[-1].done:
+            raise AssertionError("streaming decode of input chunks differs from the input")
+
+        _reset(*counters)
+        t0 = time.perf_counter()
+        drain_results, drain_times, passes = drain_loop(encoded)
+        t_drain = time.perf_counter() - t0
+        out["drain"] = launched()
+        if b"".join(r.data for r in drain_results) != data:
+            raise AssertionError("capped drain differs from the input")
+
+        for loop, needed in (("encode", ("encode_count", "encode_pack")),
+                             ("feed", ("selfsync_decode", "stream_decode")),
+                             ("drain", ("selfsync_decode_starts",))):
+            if not all(out[loop][k] for k in needed):
+                raise AssertionError(f"streaming {loop} loop did not launch {needed}: {out[loop]}")
+        total = {k: sum(out[loop][k] for loop in out) for k in out["encode"]}
+        if not all(total.values()):
+            raise AssertionError(f"a kernel of the streaming path never ran: {total}")
+        for loop, times in ((f"encode_chunk, capacity {cap} bytes", enc_times),
+                            (f"decode_chunk, {cap}-byte input chunks", feed_times),
+                            (f"decode_chunk, capacity {cap} symbols after one feed",
+                             drain_times)):
+            first, last = _first_last_ms(times)
+            groups = [statistics.median(times[i:i + 8]) * 1e3 for i in range(0, len(times), 8)]
+            print(f"phase 6 streaming run {rep} {loop}: {len(times)} calls, "
+                  f"{sum(times) * 1e3:.1f} ms, median ms per call: first 8 {first:.3f}, last 8 "
+                  f"{last:.3f}; by groups of 8: " + " ".join(f"{g:.3f}" for g in groups))
+        gbs = n / (t_enc + t_dec) / 1e9
+        print(f"phase 6 streaming run {rep}, {stream_mb} MiB at {cap}-byte chunks: encode "
+              f"{t_enc * 1e3:.1f} ms ({n / t_enc / 1e9:.3f} GB/s), decode {t_dec * 1e3:.1f} ms "
+              f"({n / t_dec / 1e9:.3f} GB/s), capped drain {t_drain * 1e3:.1f} ms "
+              f"({n / t_drain / 1e9:.3f} GB/s, {len(drain_times)} calls); "
+              f"{stream_mb} MiB / (t_enc + t_dec) = {gbs:.4f} GB/s")
+        print(f"phase 6 streaming run {rep} fixpoint passes per drain call: "
+              f"{dict(sorted(collections.Counter(passes).items()))}; launches: encode loop "
+              f"{out['encode']}, feed loop {out['feed']}, drain loop {out['drain']}")
+        if rep == 1:
+            first_launches = total
+
+    # where one call's time goes: device time by kernel and copy (profiler),
+    # and host time by function (cProfile), beside the loop's median
+    drainer = tt.HuffmanDecoder(table, device=dev)
+    drainer.decode_chunk(encoded, capacity=cap)
+    for label, fn, wall in (
+        ("encode_chunk", lambda: tt.HuffmanEncoder(table, device=dev).encode_chunk(
+            memoryview(data), cap), statistics.median(enc_times)),
+        ("fed decode_chunk", lambda: tt.HuffmanDecoder(table, device=dev).decode_chunk(
+            encoded[:cap]), statistics.median(feed_times)),
+        ("capped drain call", lambda: drainer.decode_chunk(b"", capacity=cap),
+         statistics.median(drain_times)),
+    ):
+        by_kernel = _device_ms_by_kernel(torch, fn)
+        print(f"phase 6 streaming {label}, device ms per call by torch.profiler: "
+              f"{sum(by_kernel.values()):.4f} busy of {wall * 1e3:.3f} wall (run 2 median), "
+              f"{len(by_kernel)} kernels and copies")
+        for key, t in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+            print(f"  {t:.4f} ms  {key[:100]}")
+        print(f"phase 6 streaming {label}, host ms per call by cProfile (own time): "
+              + ", ".join(f"{name} {ms:.3f}" for name, ms in _host_ms_by_function(fn)))
+    return {"launches": first_launches, "encoded": encoded, "data": data}
+
+
+def _protocol(tt, table, data: bytes, device, chunk: int) -> dict:
+    """Every result of the three streaming loops at `chunk`, with the
+    encoder's carry and the decoder's leftover bits after each call."""
+    enc = tt.HuffmanEncoder(table, device=device)
+    pending = memoryview(data)
+    rec = {"encode": [], "feed": [], "drain": []}
+    while True:
+        r = enc.encode_chunk(pending, chunk)
+        rec["encode"].append((r.data, r.consumed, r.done, enc.overflow_bits))
+        pending = pending[r.consumed:]
+        if r.done:
+            break
+    encoded = b"".join(c[0] for c in rec["encode"])
+    dec = tt.HuffmanDecoder(table, device=device)
+    for i in range(0, len(encoded), chunk):
+        r = dec.decode_chunk(encoded[i:i + chunk])
+        rec["feed"].append((r.data, r.done, dec.leftover_bits))
+    dec = tt.HuffmanDecoder(table, device=device)
+    feed = encoded
+    while True:
+        r = dec.decode_chunk(feed, chunk)
+        feed = b""
+        rec["drain"].append((r.data, r.done, dec.leftover_bits, dec.state()))
+        if r.done:
+            return rec
+
+
+def phase_protocol(torch, tt, table, counters, dev) -> None:
+    """The card against the plain versions on the CPU, call by call, on a
+    256 KiB stream at 4 KiB chunks with the decoder's threshold lowered so
+    that the self-sync words drains run."""
+    from tpu_huffman_torch import stream as tstream
+
+    data = np.random.default_rng(12).integers(0, 256, size=256 * 1024, dtype=np.uint8).tobytes()
+    saved = tstream.BULK_DECODE_THRESHOLD
+    tstream.BULK_DECODE_THRESHOLD = 1024
+    try:
+        _reset(*counters)
+        card = _protocol(tt, table, data, dev, 4096)
+        launched = {k: v for c in counters for k, v in c.items()}
+        cpu = _protocol(tt, table, data, "cpu", 4096)
+    finally:
+        tstream.BULK_DECODE_THRESHOLD = saved
+    for loop in ("encode", "feed", "drain"):
+        if card[loop] != cpu[loop]:
+            bad = next(i for i, (a, b) in enumerate(zip(card[loop], cpu[loop])) if a != b)
+            raise AssertionError(f"protocol {loop}: call {bad} differs between card and CPU")
+    if b"".join(c[0] for c in card["feed"]) != data or b"".join(
+            c[0] for c in card["drain"]) != data:
+        raise AssertionError("protocol check: decoded bytes differ from the input")
+    if not all(launched.values()):
+        raise AssertionError(f"protocol check: a kernel did not run on the card: {launched}")
+    print(f"phase 7 protocol, 256 KiB at 4 KiB chunks, words drains: {len(card['encode'])} "
+          f"encode, {len(card['feed'])} feed and {len(card['drain'])} drain calls equal the "
+          f"CPU's (bytes, consumed, done, overflow_bits, leftover_bits, state); card "
+          f"launches {launched}")
+
+
+def phase_c2(torch, tt, table, counters, dev, limit_bits: int = 1 << 31) -> None:
+    """One uncapped encode_chunk whose stream is just past 2^31 bits (the
+    JAX package's fault C2 range, for limit_bits 2^31): no segmenting, one
+    pack launch, bytes equal tt.encode's, and tt.decode gives the input
+    back."""
+    from tpu_huffman_torch.ops import pack_encode
+    from tpu_huffman_torch.ops.encode import DeviceTable
+
+    # at least 5 bits a symbol, 9.48 on average: limit_bits / 8 symbols is enough
+    data = np.random.default_rng(SEED + 2).integers(0, 256, size=limit_bits // 8,
+                                                    dtype=np.uint8)
+    dt = DeviceTable.for_table(table, dev)
+    cum = torch.cumsum(dt.lengths[torch.from_numpy(data).to(dev).long()], 0, dtype=torch.int64)
+    hi = limit_bits + 30
+    k = int(torch.searchsorted(cum, torch.tensor([hi], device=dev), right=True))
+    total = int(cum[k - 1])
+    del cum
+    if not limit_bits - 1 < total <= hi:
+        raise AssertionError(f"C2 input: {total} bits outside ({limit_bits} - 1, {hi}]")
+    src = data[:k]
+    _reset(*counters)
+    t0 = time.perf_counter()
+    r = tt.HuffmanEncoder(table, device=dev).encode_chunk(src)
+    secs = time.perf_counter() - t0
+    packs = pack_encode.launches["encode_pack"]
+    if not r.done or r.consumed != k or packs != 1 or len(r.data) != -(-total // 8):
+        raise AssertionError(f"C2 encode: done {r.done}, consumed {r.consumed} of {k}, "
+                             f"{packs} pack launches, {len(r.data)} bytes")
+    if r.data != tt.encode(src, table, device=dev):
+        raise AssertionError("C2 encode differs from tt.encode")
+    if tt.decode(r.data, table, device=dev) != src.tobytes():
+        raise AssertionError("C2 stream does not decode to the input")
+    print(f"phase 8 C2: encode_chunk of {k} symbols, {total} bits ({limit_bits} + "
+          f"{total - limit_bits}), "
+          f"one pack launch, {secs * 1e3:.1f} ms; equals tt.encode and decodes to the input")
+
+
+def phase_hpack(torch, tt, table, counters, dev, n_strings: int = 1000) -> None:
+    """The reference consumer's call pattern: each header string a fresh
+    stream on the HPACK table, encoded with eos_padding 0xFF, decoded
+    through decode_chunk in 7-byte pieces, its padding checked."""
+    corpus = hpack_corpus(64 * n_strings)
+    lens = np.random.default_rng(5).integers(4, 64, size=n_strings)
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    strings = [corpus[a:b] for a, b in zip(offs[:-1], offs[1:])]
+    _reset(*counters)
+    times = []
+    for s in strings:
+        t0 = time.perf_counter()
+        enc = tt.HuffmanEncoder(table, eos_padding=0xFF, device=dev).encode(s)
+        dec = tt.HuffmanDecoder(table, device=dev)
+        out = b"".join(dec.decode_chunk(enc[i:i + 7]).data for i in range(0, len(enc), 7))
+        padded = dec.padding_is_all_ones()
+        times.append(time.perf_counter() - t0)
+        if out != s or not padded:
+            raise AssertionError(f"HPACK string {s!r}: decoded {out!r}, padding ok {padded}")
+        if enc != tt.encode(s, table, device="cpu"):
+            raise AssertionError(f"HPACK string {s!r}: encoded bytes differ from the plain ones")
+    launched = {k: v for c in counters for k, v in c.items() if v}
+    print(f"phase 9 HPACK: {n_strings} header strings ({int(lens.sum())} bytes), each a fresh "
+          f"stream, 7-byte decode pieces, padding all ones: median "
+          f"{statistics.median(times) * 1e6:.1f} us per string (first 8 "
+          f"{statistics.median(times[:8]) * 1e6:.1f}, last 8 {statistics.median(times[-8:]) * 1e6:.1f}); "
+          f"launches {launched}")
 
 
 def main() -> int:
@@ -292,13 +617,20 @@ def main() -> int:
         entries, passes = selfsync._fixpoint(words, n_segs, seg_bits, 0, max_syms, dt)[4:]
         pass0 = torch.zeros(n_segs, dtype=torch.int32, device=dev)
         for label, ent in (("pass 0", pass0), (f"converged (pass {passes})", entries)):
+            # the plain form, and the form that also writes each symbol's
+            # start bit (the TPU kernel's emit_offs form)
             got = selfsync.decode_segments(words, ent, seg_bits, max_syms, dt)
-            want = selfsync.decode_segments_plain(words, ent, seg_bits, max_syms, dt)
+            starts_k = torch.zeros((n_segs, max_syms), dtype=torch.int16, device=dev)
+            got_s = selfsync.decode_segments(words, ent, seg_bits, max_syms, dt, starts=starts_k)
+            starts_p = torch.zeros_like(starts_k)
+            want = selfsync.decode_segments_plain(words, ent, seg_bits, max_syms, dt, starts_p)
             torch.cuda.synchronize()
             e = max(_max_abs_err(torch, a, b) for a, b in zip(got, want))
-            errs["selfsync_decode"] = max(errs["selfsync_decode"], e)
-            print(f"phase 2 selfsync_decode {name}, {label}: max_abs_err {e} "
-                  f"({n_segs} segments of {seg_bits} bits, {int(got[1].sum())} symbols, "
+            e_s = max([_max_abs_err(torch, a, b) for a, b in zip(got_s, want)]
+                      + [_max_abs_err(torch, starts_k, starts_p)])
+            errs["selfsync_decode"] = max(errs["selfsync_decode"], e, e_s)
+            print(f"phase 2 selfsync_decode {name}, {label}: max_abs_err {e}, with starts "
+                  f"{e_s} ({n_segs} segments of {seg_bits} bits, {int(got[1].sum())} symbols, "
                   f"{int((got[3] != 0).sum())} segments with an invalid window)")
         foreign[name] = (dt, words, n_segs, seg_bits, max_syms, entries, len(enc))
 
@@ -373,13 +705,8 @@ def main() -> int:
     runs = [("static 8 MiB", static, data8), ("static 64 MiB", static, data64),
             ("hpack 8 MiB", hpack, hdrs)]
 
-    def reset(*counters):
-        for counter in counters:
-            for k in counter:
-                counter[k] = 0
-
     # the indexed path: encode_with_index, then decode_indexed
-    reset(pack_encode.launches, chain_decode.launches)
+    _reset(pack_encode.launches, chain_decode.launches)
     results = []
     for name, table, data in runs:
         t0 = time.perf_counter()
@@ -393,7 +720,7 @@ def main() -> int:
         raise AssertionError(f"a kernel of the indexed path never ran: {launches}")
 
     # the foreign-stream path: decode of the same streams, with no index
-    reset(selfsync.launches, stream_decode.launches)
+    _reset(selfsync.launches, stream_decode.launches)
     foreign_runs = []
     for name, table, data, enc, _idx, _dec, _secs in results:
         before = selfsync.launches["selfsync_decode"]
@@ -401,7 +728,8 @@ def main() -> int:
         out = tt.decode(enc, table)
         secs = time.perf_counter() - t0
         foreign_runs.append((name, out, secs, selfsync.launches["selfsync_decode"] - before))
-    foreign_launches = {**selfsync.launches, **stream_decode.launches}
+    foreign_launches = {"selfsync_decode": selfsync.launches["selfsync_decode"],
+                        **stream_decode.launches}
     print(f"phase 4 foreign-stream path launches: {foreign_launches}")
     if not all(foreign_launches.values()):
         raise AssertionError(f"a kernel of the foreign-stream path never ran: {foreign_launches}")
@@ -525,6 +853,56 @@ def main() -> int:
         for key, t in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]:
             print(f"  {t:.4f} ms  {key[:100]}")
 
+    # ---- 6-9. streaming, the protocol on the card, C2, HPACK ---------------
+    counters = (pack_encode.launches, selfsync.launches, stream_decode.launches)
+    streaming = phase_streaming(torch, tt, static, counters, dev)
+
+    # selfsync_decode with starts at the capped drain's shape: the prefix of
+    # (capacity + 1) * max_len + 64 bits that one 1 MiB drain call decodes
+    cap = MIB
+    prefix_words = -(-((cap + 1) * static.max_len + 64) // 32)
+    d_words = on_card(streaming["encoded"][: 4 * prefix_words])
+    d_segs, d_seg_bits = selfsync._plan_segments(32 * prefix_words, selfsync.SEG_WORDS)
+    d_max = selfsync.max_symbols(static, d_seg_bits)
+    d_entries = selfsync._fixpoint(d_words, d_segs, d_seg_bits, 0, d_max, f_dt)[4]
+    st_k = torch.zeros((d_segs, d_max), dtype=torch.int16, device=dev)
+    st_p = torch.zeros_like(st_k)
+    got = selfsync.decode_segments(d_words, d_entries, d_seg_bits, d_max, f_dt, starts=st_k)
+    want = selfsync.decode_segments_plain(d_words, d_entries, d_seg_bits, d_max, f_dt, st_p)
+    torch.cuda.synchronize()
+    e = max([_max_abs_err(torch, a, b) for a, b in zip(got, want)]
+            + [_max_abs_err(torch, st_k, st_p)])
+    if e:
+        raise AssertionError(f"selfsync_decode with starts differs from plain: {e}")
+    d_body = int(got[1].sum())
+    starts_timed = {
+        "kernel": lambda: selfsync.decode_segments(d_words, d_entries, d_seg_bits, d_max, f_dt,
+                                                   starts=st_k),
+        "plain": lambda: selfsync.decode_segments_plain(d_words, d_entries, d_seg_bits, d_max,
+                                                        f_dt, st_p),
+        "without starts": lambda: selfsync.decode_segments(d_words, d_entries, d_seg_bits,
+                                                           d_max, f_dt),
+    }
+    p1 = _median_ms(torch, starts_timed["plain"])
+    k1 = _median_ms(torch, starts_timed["kernel"])
+    n1 = _median_ms(torch, starts_timed["without starts"])
+    k2 = _median_ms(torch, starts_timed["kernel"])
+    p2 = _median_ms(torch, starts_timed["plain"])
+    starts_alone = _profiled_kernel_ms(torch, {"selfsync_decode": starts_timed["kernel"]})
+    starts_bound = _bound(4 * prefix_words + 4 * d_segs + 3 * d_body + 12 * d_segs
+                          + 4 * f_dt.l0.numel(), OPS_PER_SYMBOL["selfsync_decode_starts"] * d_body)
+    starts_ms = {"ms": min(k1, k2), "plain_ms": min(p1, p2),
+                 "alone_ms": starts_alone.get("selfsync_decode"), "bound_ms": starts_bound[0],
+                 "bound_by": starts_bound[1], "without_starts_ms": n1}
+    print(f"phase 6 selfsync_decode with starts, one converged pass over one 1 MiB drain's "
+          f"prefix ({d_segs} segments, {d_body} symbols): max_abs_err 0; kernel {k1:.4f} / "
+          f"{k2:.4f} ms (alone {starts_ms['alone_ms']}), without starts {n1:.4f} ms, plain "
+          f"{p1:.4f} / {p2:.4f} ms, bound {starts_bound[0]:.6f} ms by {starts_bound[1]}")
+
+    phase_protocol(torch, tt, static, counters, dev)
+    phase_c2(torch, tt, static, counters, dev)
+    phase_hpack(torch, tt, hpack, counters, dev)
+
     kernels = [
         {"name": "encode_count", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/pack_encode.cu",
@@ -538,7 +916,9 @@ def main() -> int:
          "also_replaces": "tpu_huffman/ops/pallas_decode.py:481"},
         {"name": "selfsync_decode", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/selfsync_decode.cu",
-         "replaces": "tpu_huffman/ops/selfsync.py:51"},
+         "replaces": "tpu_huffman/ops/selfsync.py:51",
+         "also_replaces": "tpu_huffman/ops/selfsync.py:51 (emit_offs)",
+         "starts": starts_ms},
         {"name": "stream_decode", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/stream_decode.cu",
          "replaces": "tpu_huffman/ops/decode.py:107"},
@@ -549,7 +929,8 @@ def main() -> int:
         k.update(launches=launches[k["name"]], max_abs_err=errs[k["name"]],
                  ms=ms[k["name"]][0], plain_ms=ms[k["name"]][1],
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
-                 kernel_only_ms=kernel_only.get(k["name"]))
+                 kernel_only_ms=kernel_only.get(k["name"]),
+                 stream_launches=streaming["launches"].get(k["name"], 0))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -171,8 +171,8 @@ def test_unconverged_fixpoint_raises(tables, monkeypatch):
     real = selfsync.decode_segments
     calls = []
 
-    def wobbling(words, entries, seg_bits, max_syms, dt):
-        syms, counts, exits, bad = real(words, entries, seg_bits, max_syms, dt)
+    def wobbling(words, entries, seg_bits, max_syms, dt, starts=None):
+        syms, counts, exits, bad = real(words, entries, seg_bits, max_syms, dt, starts)
         calls.append(1)
         return syms, counts, exits + len(calls) % 2, bad
 

@@ -4,8 +4,10 @@ CUDA kernels for NVIDIA Hopper (sm_90a).
 A port of the JAX package ``tpu_huffman``, which stays the reference: the
 same bytes, block index and errors for the same inputs. It carries the main
 path (one-shot ``encode``/``encode_with_index`` and the block-parallel
-``decode_indexed``) and the one-shot ``decode`` of foreign streams, which
-carry no index. Public functions take ``device``
+``decode_indexed``), the one-shot ``decode`` of foreign streams, which
+carry no index, and the streaming ``HuffmanEncoder``/``HuffmanDecoder``
+with the reference's SHORT_BUFFER resume protocol. Public functions and
+constructors take ``device``
 (default ``"cuda"``); on ``"cpu"`` they run the kernels' plain PyTorch
 versions. The kernels (``csrc/*.cu``) are built with ``nvcc`` at first use
 (``_build.py``). Nothing here imports JAX or the JAX package.
@@ -16,6 +18,8 @@ Layer map (SURVEY.md §1):
                          (ops/pack_encode.py, ops/chain_decode.py,
                          ops/selfsync.py, ops/stream_decode.py, csrc/)
   3. symbol coder     -> tables.HuffmanTable
+  4. streaming        -> stream.HuffmanEncoder/HuffmanDecoder (testing.py:
+                         the transitive round-trip oracles)
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from .ops import (
     encode_with_index,
     get_encoded_length,
 )
+from .stream import DecodeResult, EncodeResult, HuffmanDecoder, HuffmanEncoder
 from .tables import (
     CodeSpec,
     HuffmanTable,
@@ -69,6 +74,10 @@ __all__ = [
     "BlockIndex",
     "CodeSpec",
     "CompressionError",
+    "DecodeResult",
+    "EncodeResult",
+    "HuffmanDecoder",
+    "HuffmanEncoder",
     "HuffmanTable",
     "ShortBufferError",
     "TableError",

@@ -19,11 +19,23 @@
 // [0, max code length). Outputs: syms u8[S, max_syms], counts, exits
 // (segment-relative) and bad, int32[S].
 //
+// Optional output `starts` (the TPU kernel's `emit_offs=True` form): when
+// the caller passes the buffer, int16 [S, max_syms], each emitted symbol's
+// segment-relative start bit goes into the same slot as its byte (seg_bits
+// <= 32767, checked by the wrapper); a null pointer turns it off. The
+// capped streaming drain cuts at these starts and counts the symbols before
+// an invalid window with them: a chain that steps 1 bit at invalid windows
+// cannot be rebuilt from a cumsum of code lengths. The TPU form's other
+// extra output, the last invalid-window bit, has no user on this path; it
+// waits for the one-pass + patch stitch (_segments_pipeline_fast), which
+// needs it.
+//
 // Not carried over from the TPU kernel: the (8,128) lane tiles, the
 // entry-roll select tree over a staged window, reusing one window for M
 // symbols with a re-anchor every A symbols, and u16 offsets packed two per
-// word. Those shape vector registers and VMEM tiles; here each segment is
-// an independent thread reading its words through the cache.
+// u32 word (here one int16 per slot). Those shape vector registers and VMEM
+// tiles; here each segment is an independent thread reading its words
+// through the cache.
 //
 // Bound: the serial per-symbol dependency inside a segment (a shared-memory
 // lookup and a funnel shift per symbol), as in chain_decode.cu; throughput
@@ -43,8 +55,8 @@ __global__ void selfsync_decode_kernel(
     const int* __restrict__ entries, long long n_segs, int seg_bits,
     int max_syms, const int* __restrict__ l0_g, int root_bits,
     const int* __restrict__ l1_g, long long l1_size, int l1_in_smem,
-    uint8_t* __restrict__ syms, int* __restrict__ counts,
-    int* __restrict__ exits, int* __restrict__ bad) {
+    uint8_t* __restrict__ syms, int16_t* __restrict__ starts,
+    int* __restrict__ counts, int* __restrict__ exits, int* __restrict__ bad) {
   extern __shared__ int smem[];
   const thc::Lut lut =
       thc::stage_lut(smem, l0_g, root_bits, l1_g, l1_size, l1_in_smem);
@@ -53,6 +65,7 @@ __global__ void selfsync_decode_kernel(
   if (s >= n_segs) return;
   const long long seg_start = s * seg_bits;
   uint8_t* row = syms + s * max_syms;
+  int16_t* start_row = starts ? starts + s * max_syms : nullptr;
   int rel = entries[s];  // segment-relative bit, >= 0
   thc::Cursor cur(words, n_words, seg_start + rel);
   int count = 0;
@@ -65,7 +78,10 @@ __global__ void selfsync_decode_kernel(
       if (first_bad == 0) first_bad = rel + 1;
       step = 1;
     } else {
-      if (count < max_syms) row[count] = (uint8_t)sym;  // always true for entries >= 0
+      if (count < max_syms) {  // always true for entries >= 0
+        row[count] = (uint8_t)sym;
+        if (start_row) start_row[count] = (int16_t)rel;
+      }
       ++count;
     }
     rel += step;
@@ -80,14 +96,16 @@ __global__ void selfsync_decode_kernel(
 
 extern "C" {
 
-// syms holds n_segs * max_syms bytes, zeroed by the caller; entries, counts,
-// exits and bad hold n_segs int32. `device` (the tensors' CUDA device) is
-// made current before the launch on `stream`.
+// syms holds n_segs * max_syms bytes, zeroed by the caller; starts is null
+// or holds n_segs * max_syms int16; entries, counts, exits and bad hold
+// n_segs int32. `device` (the tensors' CUDA device) is made current before
+// the launch on `stream`.
 int thc_selfsync_decode(int device, const void* words, long long n_words,
                         const void* entries, long long n_segs, int seg_bits,
                         int max_syms, const void* l0, int root_bits,
                         const void* l1, long long l1_size, void* syms,
-                        void* counts, void* exits, void* bad, void* stream) {
+                        void* starts, void* counts, void* exits, void* bad,
+                        void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const thc::LutSmem smem = thc::lut_smem(root_bits, l1_size);
@@ -95,7 +113,8 @@ int thc_selfsync_decode(int device, const void* words, long long n_words,
   selfsync_decode_kernel<<<grid, kThreads, smem.bytes, (cudaStream_t)stream>>>(
       (const unsigned*)words, n_words, (const int*)entries, n_segs, seg_bits,
       max_syms, (const int*)l0, root_bits, (const int*)l1, l1_size,
-      smem.l1_in_smem, (uint8_t*)syms, (int*)counts, (int*)exits, (int*)bad);
+      smem.l1_in_smem, (uint8_t*)syms, (int16_t*)starts, (int*)counts,
+      (int*)exits, (int*)bad);
   return (int)cudaGetLastError();
 }
 

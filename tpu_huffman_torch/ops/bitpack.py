@@ -44,6 +44,31 @@ def i32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32)
 
 
+def merge_words(buf: torch.Tensor, up: torch.Tensor, w0b: int, sh: int) -> None:
+    """OR-append new words into ``buf`` at word ``w0b``, in place (ports
+    ``stream._merge_words``).
+
+    ``up`` holds the new bytes as words packed from bit 0; ``sh`` = 8 *
+    (appended bytes so far % 4) is the byte phase of the append point. Bits
+    past the valid stream are zero on both sides, so only the boundary word
+    needs an OR; the rest overwrite zeros. ``buf`` must hold ``w0b +
+    up.numel() + 1`` words when ``sh`` > 0, else ``w0b + up.numel()``.
+    """
+    u = u32(up)
+    if sh:
+        prev = torch.cat([u.new_zeros(1), u])
+        nxt = torch.cat([u, u.new_zeros(1)])
+        u = ((prev << (32 - sh)) & MASK32) | (nxt >> sh)
+    u[:1] |= u32(buf[w0b : w0b + 1])
+    buf[w0b : w0b + u.numel()] = i32(u)
+
+
+def slide_words(buf: torch.Tensor, cw: int) -> torch.Tensor:
+    """``buf`` with its first ``cw`` words dropped and zeros after, the same
+    length (ports ``stream._slide_words``)."""
+    return torch.cat([buf[cw:], buf.new_zeros(cw)])
+
+
 def extract_windows(words64: torch.Tensor, bit_offsets: torch.Tensor) -> torch.Tensor:
     """32-bit MSB-aligned windows starting at ``bit_offsets`` (int64).
 

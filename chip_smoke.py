@@ -55,14 +55,25 @@ Phases (any failure raises and the script exits non-zero):
      the input back;
   9. HPACK: 1000 header strings, each a fresh stream encoded with
      eos_padding 0xFF and decoded in 7-byte pieces, padding all ones; the
-     median us per string.
+     median us per string;
+ 10. the profiling probes (tpu_huffman_torch.prof, the counterparts of the
+     Pallas probes in scripts/prof/), driven through each module's run()
+     with the launch counters reset just before: every form of lut_chain
+     (P1, P2, P3) and lut_wide (P6), lut_wide_mma and lut_chain_mma
+     against lut_wide / lut_chain, every kind and form of step_chain (P4),
+     and every pack_ablate mode (P5; full against encode_pack's words),
+     each bit-identical to its plain version at the script's shape and
+     seed; then timed where they fill the card, the dependent-step
+     latencies at 1, 8 and 64 warps an SM, and the library yardsticks
+     (chained torch.take; the one-hot torch.matmul).
 
 The last line is one JSON object {"ok": true, "device": {...}}; the line
 before it is the {"kernels": [...]} summary, with each kernel's bound: the
 larger of the bytes it must move (each input read once, each output written
 once) over 3.35 TB/s and its integer operations over 67 T/s (the card's
 float32 rate outside the tensor cores, the published peak nearest to
-32-bit integer work). Without a CUDA device the script exits non-zero and
+32-bit integer work); the tensor-core probe's bound counts its bf16 flops
+over 989 T/s. Without a CUDA device the script exits non-zero and
 prints no result. It imports nothing of JAX.
 """
 
@@ -87,6 +98,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 # The data sheet gives no 32-bit integer rate; its float32 rate outside the
 # tensor cores is the nearest published peak.
 SCALAR_OPS_PER_S = 67e12
+BF16_FLOPS_PER_S = 989e12  # dense tensor-core bf16 (NVIDIA's data sheet)
 # Integer operations per symbol in each kernel's loop body (a table gather,
 # shifts, compares, adds, the store), counted from the sources in csrc/.
 OPS_PER_SYMBOL = {"encode_count": 3, "encode_pack": 12, "chain_decode": 10,
@@ -512,6 +524,169 @@ def phase_hpack(torch, tt, table, counters, dev, n_strings: int = 1000) -> None:
           f"launches {launched}")
 
 
+def phase_probes(torch, dev) -> list:
+    """The probes' entry points (each module's run()) with the launch
+    counters reset just before and read just after; the library
+    yardsticks; a {"kernels": [...]} row per probe kernel."""
+    import torch.nn.functional as F
+
+    from tpu_huffman_torch import prof
+    from tpu_huffman_torch.ops.bitpack import u32
+    from tpu_huffman_torch.prof import latency, lut, mma_lut, pack_ablate
+
+    counters = (lut.launches, mma_lut.launches, latency.launches, pack_ablate.launches)
+    _reset(*counters)
+    t0 = time.perf_counter()
+    res = {"lut": lut.run(dev), "mma": mma_lut.run(dev), "latency": latency.run(dev),
+           "pack": pack_ablate.run(dev)}
+    secs = time.perf_counter() - t0
+    launched = {k: v for c in counters for k, v in c.items()}
+    print(f"phase 10 probes: every form bit-identical to its plain version at the scripts' "
+          f"shapes and seeds, {secs:.1f} s; launches {launched}")
+    if not all(launched.values()):
+        raise AssertionError(f"a probe kernel never ran: {launched}")
+
+    for case, forms in res["lut"]["chain"].items():
+        print(f"phase 10 lut_chain {case}, {prof.FILL_ELEMENTS} elements x {lut.R_CHAIN} rounds: "
+              + ", ".join(f"{f} {r['ms']:.4f} ms ({r['ns_per_lookup']:.5f} ns/lookup)"
+                          for f, r in forms.items())
+              + f"; plain {next(iter(forms.values()))['plain_ms']:.4f} ms")
+    wide = res["lut"]["wide"]
+    print(f"phase 10 lut_wide P6, {prof.FILL_ELEMENTS} elements x {lut.R_WIDE} rounds: "
+          + ", ".join(f"{f} {r['ms']:.4f} ms ({r['ns_per_lookup']:.5f} ns/lookup)"
+                      for f, r in wide.items())
+          + f"; plain {wide['smem']['plain_ms']:.4f} ms")
+    for form, by_w in res["lut"]["sweep"].items():
+        print(f"phase 10 lut_chain P3 {form} ns per dependent lookup: "
+              + ", ".join(f"{w} warps/SM {ns:.3f}" for w, ns in by_w.items()))
+    for (kind, form), r in res["latency"]["configs"].items():
+        print(f"phase 10 step_chain {kind} {form} ns per dependent step: "
+              + ", ".join(f"{w} warps/SM {ns:.3f}" for w, ns in r["sweep"].items())
+              + f"; {r['ms']:.4f} ms for {latency.INNER} steps on {res['latency']['n']} "
+              f"elements, plain {r['plain_ms']:.3f} ms")
+    mma = res["mma"]
+    for name in ("wide", "chain"):
+        print(f"phase 10 lut_{name}_mma, {mma['n']} elements: {mma[name]['ms']:.4f} ms "
+              f"({mma[name]['ns_per_lookup']:.5f} ns/lookup), plain {mma[name]['plain_ms']:.3f} ms")
+    pk = res["pack"]
+    print(f"phase 10 pack_ablate, {pk['n']} symbols, one thread a 32-symbol chunk: "
+          + ", ".join(f"{m} {r['ms']:.4f} ms" for m, r in pk["modes"].items())
+          + f"; encode_pack {pk['pack_ms']:.4f} ms; plain full {pk['modes']['full']['plain_ms']:.3f} ms")
+
+    # library yardsticks, timed here only: chained torch.take (P2's chain
+    # at the fill shape), R torch.take of the packed wide entry, and the
+    # one-hot torch.matmul (the counterpart of prof_mxu_lut.py's xla_onehot)
+    xf, t2, _acc = res["lut"]["fill"]["P2"]
+    x64, t64 = xf.to(torch.int64), t2.to(torch.int64)
+
+    def take_chain():
+        y = x64
+        for _ in range(lut.R_CHAIN):
+            y = torch.take(t64, y)
+        return y
+
+    if not torch.equal(take_chain().to(torch.int32), lut.lut_chain(xf, t2, lut.R_CHAIN)):
+        raise AssertionError("chained torch.take differs from lut_chain")
+    take_ms = prof.median_ms(take_chain)
+    xw, p32, lens = res["lut"]["fill"]["P6"]
+    xw64 = xw.to(torch.int64)
+    packed = (u32(p32) << 8) | (lens.to(torch.int64) & 255)
+
+    def take_wide():
+        acc = torch.zeros_like(xw64)
+        for r in range(lut.R_WIDE):
+            acc ^= torch.take(packed, (xw64 + r) & 255)
+        return acc
+
+    take_wide_ms = prof.median_ms(take_wide, reps=REPS)
+    xm, p32m, lensm = mma["fill"]["P6"]
+    tab = mma_lut.wide_table(p32m, lensm).to(torch.bfloat16)
+    xm64 = xm.to(torch.int64)
+
+    def onehot_matmul():
+        for r in range(lut.R_WIDE):
+            y = torch.matmul(F.one_hot((xm64 + r) & 255, 256).to(torch.bfloat16), tab)
+        return y
+
+    onehot_ms = prof.median_ms(onehot_matmul)
+    print(f"phase 10 library: {lut.R_CHAIN} chained torch.take {take_ms:.4f} ms "
+          f"({prof.FILL_ELEMENTS} elements); {lut.R_WIDE} torch.take of the packed wide entry "
+          f"{take_wide_ms:.4f} ms; {lut.R_WIDE} one-hot torch.matmul (bf16) {onehot_ms:.4f} ms "
+          f"({mma['n']} elements)")
+
+    n = prof.FILL_ELEMENTS
+    chain_row = res["lut"]["chain"]["P2"]["smem"]
+    lat = res["latency"]["configs"]["gather", "smem"]
+    n_lat = res["latency"]["n"]
+    n_sym = pk["n"]
+    rows = [
+        {"name": "lut_chain", "route": "cuda", "source": "tpu_huffman_torch/csrc/probe_lut.cu",
+         "replaces": "scripts/prof/prof_kernel_lut.py:37",
+         "also_replaces": "scripts/prof/prof_kernel_gather2d.py:24, "
+                          "scripts/prof/prof_dynamic_gather.py:34, :92",
+         "launches": launched["lut_chain"], "ms": chain_row["ms"],
+         "plain_ms": chain_row["plain_ms"], "library_ms": take_ms,
+         "library": f"{lut.R_CHAIN} chained torch.take",
+         "timed": f"P2's chain (byte table, smem) at {n} elements x {lut.R_CHAIN} rounds",
+         "work": (8 * n + 256, n * lut.R_CHAIN),
+         "forms_ms": {c: {f: r["ms"] for f, r in fm.items()}
+                      for c, fm in res["lut"]["chain"].items()},
+         "ns_per_dependent_lookup": res["lut"]["sweep"]},
+        {"name": "lut_wide", "route": "cuda", "source": "tpu_huffman_torch/csrc/probe_lut.cu",
+         "replaces": "scripts/prof/prof_mxu_lut.py:101",
+         "launches": launched["lut_wide"], "ms": wide["smem"]["ms"],
+         "plain_ms": wide["smem"]["plain_ms"], "library_ms": take_wide_ms,
+         "library": f"{lut.R_WIDE} torch.take of the packed (pattern, length) entry",
+         "timed": f"P6 (smem) at {n} elements x {lut.R_WIDE} rounds",
+         "work": (8 * n + 2048, n * lut.R_WIDE),
+         "forms_ms": {f: r["ms"] for f, r in wide.items()}},
+        {"name": "lut_wide_mma", "route": "cuda",
+         "source": "tpu_huffman_torch/csrc/probe_mma_lut.cu",
+         "replaces": "scripts/prof/prof_mxu_lut.py:152",
+         "also_replaces": "scripts/prof/prof_kernel_lut.py:37 (k_onehot, as lut_chain_mma)",
+         "launches": launched["lut_wide_mma"] + launched["lut_chain_mma"],
+         "ms": mma["wide"]["ms"], "plain_ms": mma["wide"]["plain_ms"], "library_ms": onehot_ms,
+         "library": f"{lut.R_WIDE} x torch.matmul(F.one_hot(idx, 256).bfloat16(), table)",
+         "timed": f"P6 at {mma['n']} elements x {lut.R_WIDE} rounds",
+         "chain_mma_ms": mma["chain"]["ms"]},
+        {"name": "step_chain", "route": "cuda",
+         "source": "tpu_huffman_torch/csrc/probe_latency.cu",
+         "replaces": "scripts/prof/prof_r3_gather_latency.py:31",
+         "launches": launched["step_chain"], "ms": lat["ms"], "plain_ms": lat["plain_ms"],
+         "library_ms": None,
+         "library": "none: no PyTorch call runs a chain of dependent steps",
+         "timed": f"gather, smem, {latency.INNER} steps on {n_lat} elements (64 warps/SM)",
+         "work": (8 * n_lat + 4096, n_lat * latency.INNER),
+         "ns_per_dependent_step": {f"{k} {f}": r["sweep"]
+                                   for (k, f), r in res["latency"]["configs"].items()}},
+        {"name": "pack_ablate", "route": "cuda", "source": "tpu_huffman_torch/csrc/probe_pack.cu",
+         "replaces": "scripts/prof/prof_pack_ablate.py:187",
+         "launches": launched["pack_ablate"], "ms": pk["modes"]["full"]["ms"],
+         "plain_ms": pk["modes"]["full"]["plain_ms"], "library_ms": None,
+         "library": "none: no PyTorch call packs variable-length codes",
+         "timed": f"full mode, {n_sym} symbols",
+         "work": (n_sym + 8 * pk["n_chunks"] + 4 * pk["n_words"] + 2048, n_sym),
+         "modes_ms": {m: r["ms"] for m, r in pk["modes"].items()},
+         "encode_pack_ms": pk["pack_ms"]},
+    ]
+    for row in rows:
+        row["max_abs_err"] = 0  # run() raised on any difference from the plain version
+        if row["name"] == "lut_wide_mma":
+            # tensor-core flops as executed: a one-hot row of 256 times 8 columns
+            n_m = mma["n"]
+            by_bytes = (8 * n_m + 4096) / HBM_BYTES_PER_S * 1e3
+            by_ops = n_m * lut.R_WIDE * 2 * 256 * 8 / BF16_FLOPS_PER_S * 1e3
+            row["bound_ms"], row["bound_by"] = (
+                (by_bytes, "bytes") if by_bytes >= by_ops
+                else (by_ops, "operations (tensor-core bf16 flops over 989e12)"))
+        else:
+            row["bound_ms"], row["bound_by"] = _bound(*row.pop("work"))
+        print(f"phase 10 {row['name']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.6f} ms by "
+              f"{row['bound_by']}, plain {row['plain_ms']:.4f} ms, library {row['library_ms']} "
+              f"({row['timed']})")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -902,6 +1077,7 @@ def main() -> int:
     phase_protocol(torch, tt, static, counters, dev)
     phase_c2(torch, tt, static, counters, dev)
     phase_hpack(torch, tt, hpack, counters, dev)
+    probe_rows = phase_probes(torch, dev)
 
     kernels = [
         {"name": "encode_count", "route": "cuda",
@@ -931,6 +1107,7 @@ def main() -> int:
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                  kernel_only_ms=kernel_only.get(k["name"]),
                  stream_launches=streaming["launches"].get(k["name"], 0))
+    kernels += probe_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,223 @@
+"""The profiling probes' plain versions (tpu_huffman_torch.prof) against
+the truths of the Pallas probes they port (scripts/prof/), on the CPU.
+
+The inputs are the scripts' own, regenerated from their seeds; the truths
+are the JAX package's select tree and ``jnp.take_along_axis`` in plain jnp
+(no ``pallas_call``), and the scripts' numpy checks. Every comparison is
+exact: the probes compute integer functions. The kernels themselves run
+only on a CUDA card (chip_smoke.py phase 10).
+"""
+
+import functools
+import importlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import tpu_huffman as th  # noqa: E402
+import tpu_huffman_torch as tt  # noqa: E402
+from tpu_huffman import oracle  # noqa: E402
+from tpu_huffman.ops.pallas_encode import _make_byte_lut  # noqa: E402
+from tpu_huffman_torch.ops.bitpack import words_to_bytes  # noqa: E402
+from tpu_huffman_torch.ops.encode import DeviceTable  # noqa: E402
+from tpu_huffman_torch.prof import latency, lut, mma_lut, pack_ablate  # noqa: E402
+
+CPU = torch.device("cpu")
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+@functools.lru_cache(maxsize=1)
+def _select_tree_chain():
+    """P1's truth: 16 rounds of x = (T[x] + r) & 255 through the JAX
+    package's select tree over the table packed as prof_kernel_lut.py packs
+    it."""
+    table, x = lut.p1_inputs()
+    p32 = tuple(int(table[4 * i]) | (int(table[4 * i + 1]) << 8) | (int(table[4 * i + 2]) << 16)
+                | (int(table[4 * i + 3]) << 24) for i in range(64))
+    tree = _make_byte_lut(p32)
+
+    @jax.jit
+    def chain(v):
+        acc = jnp.zeros(v.shape, jnp.uint32)
+        for _ in range(lut.R_CHAIN):
+            v = (tree(v) + acc) & 255
+            acc = acc + 1
+        return v.astype(jnp.int32)
+
+    return np.asarray(chain(jnp.asarray(x).astype(jnp.uint32)))
+
+
+@pytest.mark.parametrize("form", lut.FORMS)
+def test_lut_chain_accumulate_equals_select_tree(form):
+    table, x = lut.p1_inputs()
+    got = lut.lut_chain(_t(x), _t(table), lut.R_CHAIN, accumulate=True, form=form)
+    assert np.array_equal(got.numpy(), _select_tree_chain())
+
+
+@pytest.mark.parametrize("layout", ["lanes", "sublane"])
+def test_lut_chain_equals_take_along_axis(layout):
+    """P2: 16 rounds of x = T[x] & 255 against take_along_axis with the
+    table laid along lanes (8, 256) or sublanes (256, 128), tile by tile."""
+    table, x = lut.p2_inputs()
+    g = x.shape[0]
+    if layout == "lanes":
+        tab = jnp.broadcast_to(jnp.asarray(table), (g, 8, 256))
+        axis = 2
+    else:
+        tab = jnp.broadcast_to(jnp.asarray(table)[:, None], (g, 256, 128))
+        axis = 1
+
+    @jax.jit
+    def chain(v):
+        for _ in range(lut.R_CHAIN):
+            v = jnp.take_along_axis(tab, v, axis=axis) & 255
+        return v
+
+    want = np.asarray(chain(jnp.asarray(x)))
+    got = lut.lut_chain(_t(x), _t(table).to(torch.uint8), lut.R_CHAIN)
+    assert np.array_equal(got.numpy(), want)
+    # the int32 form of the same byte table gives the same chain
+    assert torch.equal(lut.lut_chain(_t(x), _t(table), lut.R_CHAIN), got)
+
+
+def test_lut_chain_32bit_table_equals_numpy_truth():
+    """P3: prof_dynamic_gather.py's own check (:49-52), a table of values up
+    to 2^31, at a reduced G."""
+    table, x = lut.p3_inputs(g=4)
+    want = x
+    for _ in range(lut.R_CHAIN):
+        want = table[want] & 255
+    got = lut.lut_chain(_t(x), _t(table), lut.R_CHAIN, form="shfl")
+    assert np.array_equal(got.numpy(), want)
+
+
+def _p6_truth(p32_np, len_np, x):
+    """prof_mxu_lut.py's host truth (:184-193)."""
+    accp = np.zeros(x.shape, np.uint32)
+    accl = np.zeros(x.shape, np.int32)
+    for r in range(lut.R_WIDE):
+        idx = (x + r) & 255
+        accp ^= p32_np[idx]
+        accl += len_np[idx]
+    return accp.view(np.int32) ^ accl
+
+
+@pytest.mark.parametrize("form", lut.WIDE_FORMS)
+def test_lut_wide_equals_p6_truth(form):
+    p32_np, len_np, x = lut.p6_inputs(g=32)
+    got = lut.lut_wide(_t(x), _t(p32_np.view(np.int32)), _t(len_np), lut.R_WIDE, form=form)
+    assert np.array_equal(got.numpy(), _p6_truth(p32_np, len_np, x))
+
+
+def test_lut_wide_mma_plain_equals_lut_wide():
+    """The tensor-core lookup's plain version (a float32 one-hot product)
+    against lut_wide: the bytes and lengths are exact."""
+    p32_np, len_np, x = lut.p6_inputs(g=8)
+    args = (_t(x), _t(p32_np.view(np.int32)), _t(len_np), lut.R_WIDE)
+    got = mma_lut.lut_wide_mma(*args)
+    assert torch.equal(got, mma_lut.lut_wide_mma_plain(*args))
+    assert torch.equal(got, lut.lut_wide(*args))
+
+
+@pytest.mark.parametrize("table_kind", ["P1", "P3"])
+def test_lut_chain_mma_plain_equals_lut_chain(table_kind):
+    if table_kind == "P1":
+        table, x = lut.p1_inputs()
+        acc = True
+    else:
+        table, x = lut.p3_inputs(g=1)
+        acc = False
+    x = x[:16]
+    got = mma_lut.lut_chain_mma(_t(x), _t(table), lut.R_CHAIN, acc)
+    assert torch.equal(got, lut.lut_chain(_t(x), _t(table), lut.R_CHAIN, acc))
+
+
+def _jnp_steps(kind, x, lut_np):
+    """prof_r3_gather_latency.py's step (:15-23), tile by tile over (G, 8,
+    128), INNER times, in jnp on the CPU."""
+    g = x.shape[0]
+    tab = jnp.broadcast_to(jnp.asarray(lut_np), (g, 8, 128))
+
+    def body(_, v):
+        if kind == "gather":
+            return jnp.take_along_axis(tab, (v & 127).astype(jnp.int32), axis=2) + v
+        if kind == "chain":
+            return jnp.where(v >= jnp.uint32(0x80000000), v + jnp.uint32(13), v) ^ (
+                v >> jnp.uint32(1))
+        return jnp.take_along_axis(tab, (v & 7).astype(jnp.int32), axis=1) + v
+
+    return np.asarray(jax.jit(lambda v: jax.lax.fori_loop(0, latency.INNER, body, v))(
+        jnp.asarray(x)))
+
+
+@pytest.mark.parametrize("kind,form", latency.configs())
+def test_step_chain_equals_jnp(kind, form):
+    x, lut_np = latency.p4_inputs()
+    x = x[:8]
+    got = latency.step_chain(_t(x.view(np.int32)), _t(lut_np.view(np.int32)), latency.INNER,
+                             kind, form)
+    assert np.array_equal(got.numpy().view(np.uint32), _jnp_steps(kind, x, lut_np))
+
+
+def test_pack_ablate_full_equals_reference_and_oracle():
+    ref, t = th.load_static_test_table(), tt.load_static_test_table()
+    data = pack_ablate.p5_inputs(5000)
+    dt = DeviceTable.for_table(t, CPU)
+    sym = _t(data)
+    lay = pack_ablate.layout(sym, dt)
+    words = pack_ablate.pack_ablate(sym, dt, "full", lay)
+    got = words_to_bytes(words)[: (lay[1] + 7) // 8].numpy().tobytes()
+    assert got == th.encode(data.tobytes(), ref) == oracle.oracle_encode(data.tobytes(), ref)
+    assert torch.equal(pack_ablate.pack_ablate(sym, dt, "full"), words)
+
+
+@pytest.mark.parametrize("mode", ["nop", "extract", "lut", "lut4"])
+def test_pack_ablate_modes_equal_numpy_sums(mode):
+    t = tt.load_static_test_table()
+    data = pack_ablate.p5_inputs(4099)  # a ragged last chunk
+    got = pack_ablate.pack_ablate(_t(data), DeviceTable.for_table(t, CPU), mode).numpy()
+    n_chunks = -(-data.size // pack_ablate.CHUNK)
+    want = np.zeros((n_chunks, 2), np.int64)
+    for c in range(n_chunks):
+        s = data[c * pack_ablate.CHUNK:(c + 1) * pack_ablate.CHUNK].astype(np.int64)
+        if mode == "extract":
+            want[c, 0] = s.sum()
+        elif mode != "nop":
+            want[c, 0] = t.lengths[s].astype(np.int64).sum()
+            want[c, 1] = np.bitwise_xor.reduce(t.patterns[s].astype(np.uint32))
+    assert got.shape == (n_chunks, 2)
+    assert np.array_equal(got.view(np.uint32), want.astype(np.uint32))
+
+
+@pytest.mark.parametrize("module", ["lut", "mma_lut", "latency", "pack_ablate"])
+def test_main_raises_without_a_card(monkeypatch, module):
+    mod = importlib.import_module(f"tpu_huffman_torch.prof.{module}")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.main()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mod.run()
+
+
+def test_wrappers_reject_bad_arguments():
+    x = torch.zeros(8, dtype=torch.int32)
+    table = torch.zeros(256, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        lut.lut_chain(x, table, 1, form="tree")
+    with pytest.raises(ValueError):
+        lut.lut_chain(x, torch.zeros(128, dtype=torch.int32), 1)
+    with pytest.raises(ValueError):
+        lut.lut_wide(x, table, table, 1, form="onehot")
+    with pytest.raises(ValueError):
+        latency.step_chain(x, torch.zeros((8, 128), dtype=torch.int32), 1, "scatter")
+    with pytest.raises(ValueError):
+        pack_ablate.pack_ablate(torch.zeros(4, dtype=torch.uint8),
+                                DeviceTable.for_table(tt.load_static_test_table(), CPU), "win")

@@ -20,6 +20,8 @@ Layer map (SURVEY.md §1):
   3. symbol coder     -> tables.HuffmanTable
   4. streaming        -> stream.HuffmanEncoder/HuffmanDecoder (testing.py:
                          the transitive round-trip oracles)
+  (tools)             -> prof/: the profiling probes on the card (not
+                         imported here)
 """
 
 from __future__ import annotations

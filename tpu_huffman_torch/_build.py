@@ -62,6 +62,23 @@ SIGNATURES = {
     "thc_stream_decode": (
         _I32, _P, _I64, _I64, _I64, _I64, _P, _I32, _P, _I64, _P, _P, _P,
     ),
+    # The profiling probes (prof/), csrc/probe_*.cu.
+    # device, x, n, table, table_bytes, rounds, accumulate, form, block,
+    # grid, out, stream
+    "thc_probe_lut_chain": (
+        _I32, _P, _I64, _P, _I32, _I32, _I32, _I32, _I32, _I32, _P, _P,
+    ),
+    # device, x0, n, p32, lens, rounds, form, block, grid, out, stream
+    "thc_probe_lut_wide": (_I32, _P, _I64, _P, _P, _I32, _I32, _I32, _I32, _P, _P),
+    # device, x, n, tab, rounds, mode, block, grid, out, stream
+    "thc_probe_mma_lut": (_I32, _P, _I64, _P, _I32, _I32, _I32, _I32, _P, _P),
+    # device, x, n, lut, steps, kind, form, block, grid, out, stream
+    "thc_probe_step_chain": (_I32, _P, _I64, _P, _I32, _I32, _I32, _I32, _I32, _P, _P),
+    # device, syms, n, chunk, patterns, lengths, chunk_offs, total_bits,
+    # eos_padding, words, n_words, sums, mode, stream
+    "thc_probe_pack": (
+        _I32, _P, _I64, _I32, _P, _P, _P, _I64, _I32, _P, _I64, _P, _I32, _P,
+    ),
 }
 
 _lock = threading.Lock()

@@ -10,7 +10,8 @@
 //   count: each chunk's bit total; the first unknown symbol's index
 //          (atomicMin) and the data's longest code (atomicMax).
 //   (host) the exclusive prefix over chunks is torch.cumsum in int64.
-//   pack:  each chunk writes its codes MSB-first at its global bit offset.
+//   pack:  each chunk writes its codes MSB-first at its global bit offset
+//          (the loop is thc::pack_chunk<kPackFull>, csrc/pack.cuh).
 //          Words that lie wholly inside the chunk get plain stores; its first
 //          and last word may hold a neighbour's bits too, so those are ORed
 //          in (atomicOr, never an add). The output is zeroed first. The
@@ -24,6 +25,8 @@
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "pack.cuh"
 
 namespace {
 
@@ -60,18 +63,6 @@ __global__ void encode_count_kernel(const uint8_t* __restrict__ syms,
   if ((threadIdx.x & 31) == 0 && m) atomicMax(&stats[1], (unsigned long long)m);
 }
 
-// Words past n_words are dropped: offsets that disagree with the word
-// count can never write outside the output.
-__device__ __forceinline__ void emit(unsigned* words, long long n_words,
-                                     long long w, unsigned v, bool shared) {
-  if (w < 0 || w >= n_words) return;
-  if (shared) {
-    atomicOr(&words[w], v);
-  } else {
-    words[w] = v;
-  }
-}
-
 __global__ void encode_pack_kernel(const uint8_t* __restrict__ syms,
                                    long long n, int chunk,
                                    const unsigned* __restrict__ patterns,
@@ -91,48 +82,10 @@ __global__ void encode_pack_kernel(const uint8_t* __restrict__ syms,
 
   const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= n_chunks) return;
-  const long long start = chunk_offs[c];
-  long long w = start >> 5;
-  // acc holds the pending bits MSB-aligned; its top `nacc` bits are live.
-  // The first (start & 31) of them belong to the previous chunk: zeros here.
-  unsigned long long acc = 0;
-  int nacc = (int)(start & 31);
-  bool first = true;  // the first word written may be shared with the left
   const long long i0 = c * chunk;
-  const long long i1 = min(i0 + chunk, n);
-  for (long long i = i0; i < i1; ++i) {
-    const int s = syms[i];
-    const int l = s_len[s];
-    if (l == 0) continue;  // unknown symbol: the host has raised already
-    // nacc < 32 and 1 <= l <= 32 keep the shift in [1, 63].
-    acc |= (unsigned long long)s_pat[s] << (64 - nacc - l);
-    nacc += l;
-    if (nacc >= 32) {
-      emit(words, n_words, w, (unsigned)(acc >> 32), first);
-      first = false;
-      ++w;
-      acc <<= 32;
-      nacc -= 32;
-    }
-  }
-  if (c == n_chunks - 1) {
-    // EOS padding: the low pad_len bits of eos_padding at total_bits, the
-    // end of this (the last) chunk.
-    const int pad_len = (int)((8 - (total_bits & 7)) & 7);
-    if (pad_len) {
-      const unsigned pad = eos_padding & ((1u << pad_len) - 1u);
-      acc |= (unsigned long long)pad << (64 - nacc - pad_len);
-      nacc += pad_len;
-      if (nacc >= 32) {
-        emit(words, n_words, w, (unsigned)(acc >> 32), first);
-        ++w;
-        acc <<= 32;
-        nacc -= 32;
-      }
-    }
-  }
-  // The last, partial word may be shared with the next chunk.
-  if (nacc > 0) emit(words, n_words, w, (unsigned)(acc >> 32), true);
+  thc::pack_chunk<thc::kPackFull>(syms, i0, min(i0 + chunk, n), s_pat, s_len,
+                                  chunk_offs[c], c == n_chunks - 1,
+                                  total_bits, eos_padding, words, n_words);
 }
 
 unsigned grid_for(long long n_chunks) {

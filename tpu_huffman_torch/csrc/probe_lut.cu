@@ -1,0 +1,357 @@
+// Table lookups in the placements a CUDA kernel can give a 256-entry table.
+//
+// Replaces the Pallas lookup probes: scripts/prof/prof_kernel_lut.py:run
+// (:37; bodies k_tree, k_take), prof_kernel_gather2d.py:run (:24; k_lanes,
+// k_sublane), prof_dynamic_gather.py's f and ft (:34, :92) and
+// prof_mxu_lut.py's f_gather3 (:101). Two kernels:
+//   lut_chain: R dependent lookups per element, x = (T[x] (+ r)) & 255,
+//              on a byte table (uint8) or a 32-bit one (int32);
+//   lut_wide:  R independent lookups of a (32-bit pattern, length) entry
+//              at idx = (x0 + r) & 255; out = XOR patterns ^ SUM lengths.
+// Forms (where the table lives):
+//   smem      one copy per block in shared memory;
+//   smem_rep  one copy per bank column: lane c reads copy c, in bank c,
+//             so 32 random indexes never conflict (32 KB of 32-bit entries;
+//             a byte table keeps four entries a word, 8 KB);
+//   ldg       global memory through L1 (ld.global.nc);
+//   l2        global memory through L2 only (ld.global.cg);
+//   shfl      spread over the warp's registers, read with __shfl_sync: two
+//             words a lane for a byte table, eight for a 32-bit one (eight
+//             shuffles and a select tree, the counterpart of the TPU's
+//             select tree, tpu_huffman/ops/pallas_encode.py:_make_byte_lut);
+//   packed    (lut_wide only) pattern and length as one 64-bit shared
+//             memory entry, one load a lookup: the counterpart of P6's
+//             three gathers.
+//
+// Bound: at the scripts' round counts, bytes (each element read and
+// written once); per lookup, the latency of the dependent load (lut_chain)
+// or the load throughput of the form (lut_wide). The design keeps every
+// round dependent on the last (lut_chain) and the table's placement a
+// template parameter, so that each form compiles to its own load
+// instruction and nothing else differs. A block-uniform grid-stride loop
+// keeps every lane of a warp in the loop, as __shfl_sync needs.
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+enum Form : int { kSmem = 0, kSmemRep = 1, kLdg = 2, kL2 = 3, kShfl = 4, kPacked = 5 };
+
+// Byte b of the little-endian word holding entries 4w..4w+3.
+__device__ __forceinline__ unsigned byte_of(unsigned w, unsigned i) {
+  return (w >> ((i & 3u) * 8u)) & 255u;
+}
+
+__device__ __forceinline__ unsigned word_of_bytes(const uint8_t* t, int w) {
+  return (unsigned)t[4 * w] | ((unsigned)t[4 * w + 1] << 8) |
+         ((unsigned)t[4 * w + 2] << 16) | ((unsigned)t[4 * w + 3] << 24);
+}
+
+// Entry i (of 256) of a table spread over the warp: entry i in lane i & 31,
+// register i >> 5. Eight shuffles, then a select tree on i >> 5.
+__device__ __forceinline__ unsigned shfl_select8(const unsigned (&r)[8], unsigned i) {
+  const int src = (int)(i & 31u);
+  unsigned v[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) v[k] = __shfl_sync(kFull, r[k], src);
+  const unsigned k = i >> 5;
+  const unsigned a = (k & 1u) ? v[1] : v[0];
+  const unsigned b = (k & 1u) ? v[3] : v[2];
+  const unsigned c = (k & 1u) ? v[5] : v[4];
+  const unsigned d = (k & 1u) ? v[7] : v[6];
+  const unsigned ab = (k & 2u) ? b : a;
+  const unsigned cd = (k & 2u) ? d : c;
+  return (k & 4u) ? cd : ab;
+}
+
+// Byte i of a 256-byte table spread over the warp: word w = i >> 2 in lane
+// w & 31, register w >> 5. Two shuffles and one select.
+__device__ __forceinline__ unsigned shfl_byte(unsigned r0, unsigned r1, unsigned i) {
+  const int src = (int)((i >> 2) & 31u);
+  const unsigned a = __shfl_sync(kFull, r0, src);
+  const unsigned b = __shfl_sync(kFull, r1, src);
+  return byte_of((i & 128u) ? b : a, i);
+}
+
+// A 256-entry byte table in form F; get(i) is entry i, i < 256.
+template <int F>
+struct ByteTable {
+  const uint8_t* g;
+  const unsigned* s;
+  unsigned r0, r1;
+  unsigned lane;
+
+  static constexpr int smem_bytes() {
+    return F == kSmem ? 256 : F == kSmemRep ? 64 * 32 * 4 : 0;
+  }
+
+  // Every thread of the block calls this once, before any get.
+  __device__ __forceinline__ void init(const uint8_t* __restrict__ tab, unsigned* smem) {
+    g = tab;
+    s = smem;
+    lane = threadIdx.x & 31u;
+    if constexpr (F == kSmem) {
+      uint8_t* b = reinterpret_cast<uint8_t*>(smem);
+      for (int i = threadIdx.x; i < 256; i += blockDim.x) b[i] = tab[i];
+      __syncthreads();
+    } else if constexpr (F == kSmemRep) {
+      for (int k = threadIdx.x; k < 64 * 32; k += blockDim.x)
+        smem[k] = word_of_bytes(tab, k >> 5);
+      __syncthreads();
+    } else if constexpr (F == kShfl) {
+      r0 = word_of_bytes(tab, (int)lane);
+      r1 = word_of_bytes(tab, (int)lane + 32);
+    }
+  }
+
+  __device__ __forceinline__ unsigned get(unsigned i) const {
+    if constexpr (F == kSmem) {
+      return reinterpret_cast<const uint8_t*>(s)[i];
+    } else if constexpr (F == kSmemRep) {
+      return byte_of(s[(i >> 2) * 32u + lane], i);
+    } else if constexpr (F == kLdg) {
+      return __ldg(g + i);
+    } else if constexpr (F == kL2) {
+      return __ldcg(g + i);
+    } else {
+      return shfl_byte(r0, r1, i);
+    }
+  }
+};
+
+// A 256-entry table of 32-bit values in form F.
+template <int F>
+struct WordTable {
+  const unsigned* g;
+  const unsigned* s;
+  unsigned r[8];
+  unsigned lane;
+
+  static constexpr int smem_bytes() {
+    return F == kSmem ? 256 * 4 : F == kSmemRep ? 256 * 32 * 4 : 0;
+  }
+
+  __device__ __forceinline__ void init(const unsigned* __restrict__ tab, unsigned* smem) {
+    g = tab;
+    s = smem;
+    lane = threadIdx.x & 31u;
+    if constexpr (F == kSmem) {
+      for (int i = threadIdx.x; i < 256; i += blockDim.x) smem[i] = tab[i];
+      __syncthreads();
+    } else if constexpr (F == kSmemRep) {
+      for (int k = threadIdx.x; k < 256 * 32; k += blockDim.x) smem[k] = tab[k >> 5];
+      __syncthreads();
+    } else if constexpr (F == kShfl) {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) r[k] = tab[k * 32 + lane];
+    }
+  }
+
+  __device__ __forceinline__ unsigned get(unsigned i) const {
+    if constexpr (F == kSmem) {
+      return s[i];
+    } else if constexpr (F == kSmemRep) {
+      return s[i * 32u + lane];
+    } else if constexpr (F == kLdg) {
+      return __ldg(g + i);
+    } else if constexpr (F == kL2) {
+      return __ldcg(g + i);
+    } else {
+      return shfl_select8(r, i);
+    }
+  }
+};
+
+// x[i] = (T[x[i]] (+ r)) & 255 for r < rounds.
+template <typename Table, typename Entry, bool Acc>
+__global__ void lut_chain_kernel(const int* __restrict__ x, const Entry* __restrict__ table,
+                                 int rounds, int* __restrict__ out, long long n) {
+  extern __shared__ unsigned smem[];
+  Table t;
+  t.init(table, smem);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // block-uniform trip count: every lane reaches every shuffle
+  for (long long b = (long long)blockIdx.x * blockDim.x; b < n; b += stride) {
+    const long long i = b + threadIdx.x;
+    const bool live = i < n;
+    unsigned v = live ? (unsigned)x[i] & 255u : 0u;
+#pragma unroll 4
+    for (int r = 0; r < rounds; ++r) {
+      const unsigned e = t.get(v);
+      v = (Acc ? e + (unsigned)r : e) & 255u;
+    }
+    if (live) out[i] = (int)v;
+  }
+}
+
+// The (pattern, length) table of lut_wide in form F. Lengths are bytes.
+template <int F>
+struct WideTable {
+  WordTable<F == kPacked ? kSmem : F> pat;
+  const int* gl;
+  const unsigned* sl;
+  unsigned l0, l1;
+
+  static constexpr int smem_bytes() {
+    return F == kSmem || F == kPacked ? 256 * 8 : F == kSmemRep ? 256 * 32 * 4 + 64 * 32 * 4 : 0;
+  }
+
+  __device__ __forceinline__ void init(const unsigned* __restrict__ p32,
+                                       const int* __restrict__ lens, unsigned* smem) {
+    gl = lens;
+    if constexpr (F == kPacked) {
+      uint2* e = reinterpret_cast<uint2*>(smem);
+      for (int i = threadIdx.x; i < 256; i += blockDim.x)
+        e[i] = make_uint2(p32[i], (unsigned)lens[i] & 255u);
+      __syncthreads();
+      sl = smem;
+    } else {
+      pat.init(p32, smem);
+      const int lane = threadIdx.x & 31;
+      if constexpr (F == kSmem) {
+        unsigned* s = smem + 256;
+        for (int i = threadIdx.x; i < 256; i += blockDim.x) s[i] = (unsigned)lens[i] & 255u;
+        __syncthreads();
+        sl = s;
+      } else if constexpr (F == kSmemRep) {
+        unsigned* s = smem + 256 * 32;
+        for (int k = threadIdx.x; k < 64 * 32; k += blockDim.x) {
+          const int w = k >> 5;
+          s[k] = ((unsigned)lens[4 * w] & 255u) | (((unsigned)lens[4 * w + 1] & 255u) << 8) |
+                 (((unsigned)lens[4 * w + 2] & 255u) << 16) |
+                 (((unsigned)lens[4 * w + 3] & 255u) << 24);
+        }
+        __syncthreads();
+        sl = s;
+      } else if constexpr (F == kShfl) {
+        auto word = [&](int w) {
+          return ((unsigned)lens[4 * w] & 255u) | (((unsigned)lens[4 * w + 1] & 255u) << 8) |
+                 (((unsigned)lens[4 * w + 2] & 255u) << 16) |
+                 (((unsigned)lens[4 * w + 3] & 255u) << 24);
+        };
+        l0 = word(lane);
+        l1 = word(lane + 32);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void get(unsigned i, unsigned& p, unsigned& l) const {
+    if constexpr (F == kPacked) {
+      const uint2 e = reinterpret_cast<const uint2*>(sl)[i];
+      p = e.x;
+      l = e.y;
+    } else {
+      p = pat.get(i);
+      if constexpr (F == kSmem) {
+        l = sl[i];
+      } else if constexpr (F == kSmemRep) {
+        l = byte_of(sl[(i >> 2) * 32u + pat.lane], i);
+      } else if constexpr (F == kLdg) {
+        l = (unsigned)__ldg(gl + i) & 255u;
+      } else if constexpr (F == kL2) {
+        l = (unsigned)__ldcg(gl + i) & 255u;
+      } else {
+        l = shfl_byte(l0, l1, i);
+      }
+    }
+  }
+};
+
+// out[i] = XOR_r p32[(x0[i] + r) & 255] ^ SUM_r lens[(x0[i] + r) & 255].
+template <int F>
+__global__ void lut_wide_kernel(const int* __restrict__ x0, const unsigned* __restrict__ p32,
+                                const int* __restrict__ lens, int rounds,
+                                int* __restrict__ out, long long n) {
+  extern __shared__ unsigned smem[];
+  WideTable<F> t;
+  t.init(p32, lens, smem);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long b = (long long)blockIdx.x * blockDim.x; b < n; b += stride) {
+    const long long i = b + threadIdx.x;
+    const bool live = i < n;
+    const unsigned base = live ? (unsigned)x0[i] : 0u;
+    unsigned accp = 0u, accl = 0u;
+#pragma unroll 4
+    for (int r = 0; r < rounds; ++r) {
+      unsigned p, l;
+      t.get((base + (unsigned)r) & 255u, p, l);
+      accp ^= p;
+      accl += l;
+    }
+    if (live) out[i] = (int)(accp ^ accl);
+  }
+}
+
+template <typename Table, typename Entry, bool Acc>
+cudaError_t launch_chain(const void* x, long long n, const void* table, int rounds, int block,
+                         int grid, void* out, cudaStream_t stream) {
+  lut_chain_kernel<Table, Entry, Acc><<<grid, block, Table::smem_bytes(), stream>>>(
+      (const int*)x, (const Entry*)table, rounds, (int*)out, n);
+  return cudaGetLastError();
+}
+
+template <int F>
+cudaError_t chain_form(const void* x, long long n, const void* table, int table_bytes,
+                       int rounds, int accumulate, int block, int grid, void* out,
+                       cudaStream_t s) {
+  if (table_bytes == 1) {
+    return accumulate
+               ? launch_chain<ByteTable<F>, uint8_t, true>(x, n, table, rounds, block, grid, out, s)
+               : launch_chain<ByteTable<F>, uint8_t, false>(x, n, table, rounds, block, grid, out, s);
+  }
+  return accumulate
+             ? launch_chain<WordTable<F>, unsigned, true>(x, n, table, rounds, block, grid, out, s)
+             : launch_chain<WordTable<F>, unsigned, false>(x, n, table, rounds, block, grid, out, s);
+}
+
+template <int F>
+cudaError_t wide_form(const void* x0, long long n, const void* p32, const void* lens,
+                      int rounds, int block, int grid, void* out, cudaStream_t s) {
+  lut_wide_kernel<F><<<grid, block, WideTable<F>::smem_bytes(), s>>>(
+      (const int*)x0, (const unsigned*)p32, (const int*)lens, rounds, (int*)out, n);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// form: 0 smem, 1 smem_rep, 2 ldg, 3 l2, 4 shfl. table: 256 entries of
+// table_bytes (1: uint8, 4: int32). block must be a multiple of 32.
+int thc_probe_lut_chain(int device, const void* x, long long n, const void* table,
+                        int table_bytes, int rounds, int accumulate, int form, int block,
+                        int grid, void* out, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (form) {
+    case kSmem: return (int)chain_form<kSmem>(x, n, table, table_bytes, rounds, accumulate, block, grid, out, s);
+    case kSmemRep: return (int)chain_form<kSmemRep>(x, n, table, table_bytes, rounds, accumulate, block, grid, out, s);
+    case kLdg: return (int)chain_form<kLdg>(x, n, table, table_bytes, rounds, accumulate, block, grid, out, s);
+    case kL2: return (int)chain_form<kL2>(x, n, table, table_bytes, rounds, accumulate, block, grid, out, s);
+    case kShfl: return (int)chain_form<kShfl>(x, n, table, table_bytes, rounds, accumulate, block, grid, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// form: as above, plus 5 packed.
+int thc_probe_lut_wide(int device, const void* x0, long long n, const void* p32,
+                       const void* lens, int rounds, int form, int block, int grid,
+                       void* out, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  const cudaStream_t s = (cudaStream_t)stream;
+  switch (form) {
+    case kSmem: return (int)wide_form<kSmem>(x0, n, p32, lens, rounds, block, grid, out, s);
+    case kSmemRep: return (int)wide_form<kSmemRep>(x0, n, p32, lens, rounds, block, grid, out, s);
+    case kLdg: return (int)wide_form<kLdg>(x0, n, p32, lens, rounds, block, grid, out, s);
+    case kL2: return (int)wide_form<kL2>(x0, n, p32, lens, rounds, block, grid, out, s);
+    case kShfl: return (int)wide_form<kShfl>(x0, n, p32, lens, rounds, block, grid, out, s);
+    case kPacked: return (int)wide_form<kPacked>(x0, n, p32, lens, rounds, block, grid, out, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // extern "C"

@@ -32,8 +32,8 @@ Phases (any failure raises and the script exits non-zero):
      equal the input, and the encoded bytes and index equal the plain
      version's; the fixpoint passes of each decode are printed;
   5. timings with CUDA events at 8 MiB: each kernel's wrapper beside its
-     plain version (median of 10 after warm-up), each kernel alone by
-     torch.profiler, the device time of one decode by kernel, and the
+     plain version (prof.median_ms: median of 11 samples of 5 calls after
+     a warm-up), each kernel alone by torch.profiler, the device time of one decode by kernel, and the
      public calls end to end from host bytes, in GB/s of plaintext;
   6. the streaming path (bench_suite.bench_streaming on the port): 64 MiB of
      random bytes (seed 11) on the static table through a capped
@@ -63,7 +63,8 @@ Phases (any failure raises and the script exits non-zero):
      against lut_wide / lut_chain, every kind and form of step_chain (P4),
      and every pack_ablate mode (P5; full against encode_pack's words),
      each bit-identical to its plain version at the script's shape and
-     seed; then timed where they fill the card, the dependent-step
+     seed and at every shape, round count and block size it is timed at;
+     then timed where they fill the card, the dependent-step
      latencies at 1, 8 and 64 warps an SM, and the library yardsticks
      (chained torch.take; the one-hot torch.matmul).
 
@@ -127,24 +128,6 @@ def _golden():
     return golden
 
 
-def _median_ms(torch, fn, reps: int = REPS, inner: int = 5) -> float:
-    """Median over reps samples of the device time per fn() call, each
-    sample timed by CUDA events around inner back-to-back calls, after one
-    warm-up call."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start = torch.cuda.Event(enable_timing=True)
-        stop = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(inner):
-            fn()
-        stop.record()
-        stop.synchronize()
-        times.append(start.elapsed_time(stop) / inner)
-    return statistics.median(times)
-
-
 def _device_us(evt) -> float:
     """An averaged profiler event's device time in us (the attribute's name
     differs between torch versions)."""
@@ -153,11 +136,14 @@ def _device_us(evt) -> float:
     return evt.cuda_time_total
 
 
-def _profiled_kernel_ms(torch, calls, reps: int = REPS) -> dict:
+def _profiled_kernel_ms(torch, calls) -> dict:
     """Device time per launch of each named CUDA kernel, by torch.profiler,
-    over reps runs of every call: the kernel alone, without the wrapper's
-    allocations and launch gaps. Kernels the profiler did not see are left
-    out (not measured)."""
+    over REPS runs of every call: the kernel alone, without the wrapper's
+    allocations, the fills of its outputs and its launch gaps, which
+    prof.kernel_ms's events cannot leave out. Each kernel's mean divides by
+    the launches the profiler saw, so a launch it drops does not bias it
+    (the probes cannot use it: one kernel name serves many forms there).
+    Kernels the profiler did not see are left out (not measured)."""
     from torch.profiler import ProfilerActivity, profile
 
     for call in calls.values():
@@ -165,7 +151,7 @@ def _profiled_kernel_ms(torch, calls, reps: int = REPS) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for call in calls.values():
-            for _ in range(reps):
+            for _ in range(REPS):
                 call()
         torch.cuda.synchronize()
     out = {}
@@ -176,10 +162,10 @@ def _profiled_kernel_ms(torch, calls, reps: int = REPS) -> dict:
     return out
 
 
-def _median_wall_ms(torch, fn, reps: int = REPS) -> float:
+def _median_wall_ms(torch, fn) -> float:
     fn()
     times = []
-    for _ in range(reps):
+    for _ in range(REPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -230,14 +216,6 @@ def _bound(nbytes: int, ops: int) -> tuple[float, str]:
     by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     by_ops = ops / SCALAR_OPS_PER_S * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
-def _max_abs_err(torch, a, b) -> int:
-    if a.shape != b.shape or a.dtype != b.dtype:
-        raise AssertionError(f"shape/dtype differ: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
-    if a.numel() == 0:
-        return 0
-    return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
 def _reset(*counters) -> None:
@@ -571,7 +549,9 @@ def phase_probes(torch, dev) -> list:
     pk = res["pack"]
     print(f"phase 10 pack_ablate, {pk['n']} symbols, one thread a 32-symbol chunk: "
           + ", ".join(f"{m} {r['ms']:.4f} ms" for m, r in pk["modes"].items())
-          + f"; encode_pack {pk['pack_ms']:.4f} ms; plain full {pk['modes']['full']['plain_ms']:.3f} ms")
+          + f"; encode_pack {pk['pack_ms']:.4f} ms (full and encode_pack include the "
+          f"{pk['fill_ms']:.4f} ms fill of the output words); plain full "
+          f"{pk['modes']['full']['plain_ms']:.3f} ms")
 
     # library yardsticks, timed here only: chained torch.take (P2's chain
     # at the fill shape), R torch.take of the packed wide entry, and the
@@ -598,7 +578,7 @@ def phase_probes(torch, dev) -> list:
             acc ^= torch.take(packed, (xw64 + r) & 255)
         return acc
 
-    take_wide_ms = prof.median_ms(take_wide, reps=REPS)
+    take_wide_ms = prof.median_ms(take_wide)
     xm, p32m, lensm = mma["fill"]["P6"]
     tab = mma_lut.wide_table(p32m, lensm).to(torch.bfloat16)
     xm64 = xm.to(torch.int64)
@@ -667,10 +647,13 @@ def phase_probes(torch, dev) -> list:
          "timed": f"full mode, {n_sym} symbols",
          "work": (n_sym + 8 * pk["n_chunks"] + 4 * pk["n_words"] + 2048, n_sym),
          "modes_ms": {m: r["ms"] for m, r in pk["modes"].items()},
-         "encode_pack_ms": pk["pack_ms"]},
+         "encode_pack_ms": pk["pack_ms"], "output_fill_ms": pk["fill_ms"]},
     ]
+    # each run() held every launch it timed against its plain version
+    errs = {k: v for r in res.values() for k, v in r["max_abs_err"].items()}
+    errs["lut_wide_mma"] = max(errs["lut_wide_mma"], errs.pop("lut_chain_mma"))
     for row in rows:
-        row["max_abs_err"] = 0  # run() raised on any difference from the plain version
+        row["max_abs_err"] = errs[row["name"]]
         if row["name"] == "lut_wide_mma":
             # tensor-core flops as executed: a one-hot row of 256 times 8 columns
             n_m = mma["n"]
@@ -700,6 +683,7 @@ def main() -> int:
     from tpu_huffman_torch.ops import chain_decode, pack_encode, selfsync, stream_decode
     from tpu_huffman_torch.ops.bitpack import stage_words
     from tpu_huffman_torch.ops.encode import DeviceTable, _encode_device
+    from tpu_huffman_torch.prof import max_abs_err, median_ms
 
     dev = torch.device("cuda")
 
@@ -740,7 +724,7 @@ def main() -> int:
         cb, st = pack_encode.count(sym, dt, chunk)
         cb_p, st_p = pack_encode.count_plain(sym, dt, chunk)
         torch.cuda.synchronize()
-        e = max(_max_abs_err(torch, cb, cb_p), _max_abs_err(torch, st, st_p))
+        e = max(max_abs_err(cb, cb_p), max_abs_err(st, st_p))
         errs["encode_count"] = max(errs["encode_count"], e)
         incl = torch.cumsum(cb, 0, dtype=torch.int64)
         offs = incl - cb
@@ -749,7 +733,7 @@ def main() -> int:
         words = pack_encode.pack(sym, dt, chunk, offs, total, 0xFF, n_words)
         w_p = pack_encode.pack_plain(sym, dt, chunk, offs, total, 0xFF, n_words)
         torch.cuda.synchronize()
-        errs["encode_pack"] = max(errs["encode_pack"], _max_abs_err(torch, words, w_p))
+        errs["encode_pack"] = max(errs["encode_pack"], max_abs_err(words, w_p))
 
         n = sym.numel()
         block_offs = offs[:: K // chunk].contiguous()
@@ -762,8 +746,8 @@ def main() -> int:
             words, block_offs, nsyms, out_start, n, dt
         )
         torch.cuda.synchronize()
-        e = max(_max_abs_err(torch, out, out_p), _max_abs_err(torch, end, end_p),
-                _max_abs_err(torch, bad, bad_p))
+        e = max(max_abs_err(out, out_p), max_abs_err(end, end_p),
+                max_abs_err(bad, bad_p))
         errs["chain_decode"] = max(errs["chain_decode"], e)
         if not torch.equal(out, sym) or int(bad) != 0:
             raise AssertionError(f"kernel decode at K={K} does not return the input")
@@ -800,9 +784,9 @@ def main() -> int:
             starts_p = torch.zeros_like(starts_k)
             want = selfsync.decode_segments_plain(words, ent, seg_bits, max_syms, dt, starts_p)
             torch.cuda.synchronize()
-            e = max(_max_abs_err(torch, a, b) for a, b in zip(got, want))
-            e_s = max([_max_abs_err(torch, a, b) for a, b in zip(got_s, want)]
-                      + [_max_abs_err(torch, starts_k, starts_p)])
+            e = max(max_abs_err(a, b) for a, b in zip(got, want))
+            e_s = max([max_abs_err(a, b) for a, b in zip(got_s, want)]
+                      + [max_abs_err(starts_k, starts_p)])
             errs["selfsync_decode"] = max(errs["selfsync_decode"], e, e_s)
             print(f"phase 2 selfsync_decode {name}, {label}: max_abs_err {e}, with starts "
                   f"{e_s} ({n_segs} segments of {seg_bits} bits, {int(got[1].sum())} symbols, "
@@ -820,7 +804,7 @@ def main() -> int:
         got = stream_decode.decode_stream(words, 0, 8 * 4096, cap, dt)
         want = stream_decode.decode_stream_plain(words, 0, 8 * 4096, cap, dt)
         torch.cuda.synchronize()
-        e = max(_max_abs_err(torch, a, b) for a, b in zip(got, want))
+        e = max(max_abs_err(a, b) for a, b in zip(got, want))
         errs["stream_decode"] = max(errs["stream_decode"], e)
         n_dec, end_bit, status = got[1].tolist()
         if status != want_status or got[0][:n_dec].cpu().numpy().tobytes() != data8[:n_dec]:
@@ -987,10 +971,10 @@ def main() -> int:
     ms = {}
     for name, (kernel, plain) in timed.items():
         # plain, kernel, kernel, plain: both sides see the same card state
-        p1 = _median_ms(torch, plain)
-        k1 = _median_ms(torch, kernel)
-        k2 = _median_ms(torch, kernel)
-        p2 = _median_ms(torch, plain)
+        p1 = median_ms(plain)
+        k1 = median_ms(kernel)
+        k2 = median_ms(kernel)
+        p2 = median_ms(plain)
         ms[name] = (min(k1, k2), min(p1, p2))
         bound_ms, bound_by = _bound(*work[name])
         print(f"phase 5 {name}: kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
@@ -1000,7 +984,7 @@ def main() -> int:
         got = kernel_only.get(name)
         print(f"phase 5 {name}: kernel alone (torch.profiler) "
               + (f"{got:.4f} ms" if got is not None else "not measured"))
-    sym_dev_ms = _median_ms(torch, lambda: _encode_device(sym, dt, 0xFF, chunk))
+    sym_dev_ms = median_ms(lambda: _encode_device(sym, dt, 0xFF, chunk))
     print(f"phase 5 device-resident encode (count+cumsum+sync+pack): "
           f"{sym_dev_ms:.4f} ms ({gbs(sym_dev_ms):.2f} GB/s)")
     enc8, idx8 = tt.encode_with_index(data8, static)
@@ -1045,8 +1029,8 @@ def main() -> int:
     got = selfsync.decode_segments(d_words, d_entries, d_seg_bits, d_max, f_dt, starts=st_k)
     want = selfsync.decode_segments_plain(d_words, d_entries, d_seg_bits, d_max, f_dt, st_p)
     torch.cuda.synchronize()
-    e = max([_max_abs_err(torch, a, b) for a, b in zip(got, want)]
-            + [_max_abs_err(torch, st_k, st_p)])
+    e = max([max_abs_err(a, b) for a, b in zip(got, want)]
+            + [max_abs_err(st_k, st_p)])
     if e:
         raise AssertionError(f"selfsync_decode with starts differs from plain: {e}")
     d_body = int(got[1].sum())
@@ -1058,11 +1042,11 @@ def main() -> int:
         "without starts": lambda: selfsync.decode_segments(d_words, d_entries, d_seg_bits,
                                                            d_max, f_dt),
     }
-    p1 = _median_ms(torch, starts_timed["plain"])
-    k1 = _median_ms(torch, starts_timed["kernel"])
-    n1 = _median_ms(torch, starts_timed["without starts"])
-    k2 = _median_ms(torch, starts_timed["kernel"])
-    p2 = _median_ms(torch, starts_timed["plain"])
+    p1 = median_ms(starts_timed["plain"])
+    k1 = median_ms(starts_timed["kernel"])
+    n1 = median_ms(starts_timed["without starts"])
+    k2 = median_ms(starts_timed["kernel"])
+    p2 = median_ms(starts_timed["plain"])
     starts_alone = _profiled_kernel_ms(torch, {"selfsync_decode": starts_timed["kernel"]})
     starts_bound = _bound(4 * prefix_words + 4 * d_segs + 3 * d_body + 12 * d_segs
                           + 4 * f_dt.l0.numel(), OPS_PER_SYMBOL["selfsync_decode_starts"] * d_body)

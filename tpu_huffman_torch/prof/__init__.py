@@ -20,10 +20,12 @@ at a shape that fills the card, and a ``main``:
     python -m tpu_huffman_torch.prof.lut   # or .mma_lut, .latency, .pack_ablate
 
 Without a CUDA device ``run`` and ``main`` raise. This module holds what
-they share: the device checks, the launch shape and the timers (CUDA
-events; for the kernels, calls queued behind a sleep kernel so that the
-host's time does not count; warm-up, median of at least 10; the slope
-between two round or step counts, which takes the launch out).
+they share: the device checks, the launch shape, the comparison with the
+plain version, and the timers (CUDA events; for the kernels, calls queued
+behind a sleep kernel so that the host's time does not count; warm-up,
+median of 11; the slope between two round or step counts, which takes the
+launch out). ``chip_smoke.py`` times its wrappers and plain versions with
+the same :func:`median_ms`.
 """
 
 from __future__ import annotations
@@ -34,6 +36,7 @@ import subprocess
 import torch
 
 REPS = 11  # timed samples per median
+CALLS = 5  # back-to-back calls per sample
 FILL_ELEMENTS = 8 << 20  # one thread an element at 2048 threads on 132 SMs, 31 times over
 WARPS_PER_SM = (1, 8, 64)  # the occupancy sweep
 MAX_THREADS_PER_SM = 2048
@@ -95,46 +98,47 @@ def one_wave(dev: torch.device) -> int:
     return sweep_shape(max(WARPS_PER_SM), dev)[0]
 
 
-def median_ms(fn, reps: int = REPS, warmup: int = 2, inner: int = 1) -> float:
-    """Median device time of one fn() call: each of reps samples times
-    inner back-to-back calls by CUDA events, after warmup calls."""
-    for _ in range(warmup):
-        fn()
+def median_ms(fn) -> float:
+    """Device time of one fn() call, wrapper and host gaps included: the
+    median over REPS samples, each timed by CUDA events around CALLS
+    back-to-back calls, after one warm-up call."""
+    fn()
     times = []
-    for _ in range(reps):
+    for _ in range(REPS):
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
-        for _ in range(inner):
+        for _ in range(CALLS):
             fn()
         stop.record()
         stop.synchronize()
-        times.append(start.elapsed_time(stop) / inner)
+        times.append(start.elapsed_time(stop) / CALLS)
     return statistics.median(times)
 
 
-def kernel_ms(calls: dict, reps: int = REPS, inner: int = 5) -> dict:
+def kernel_ms(calls: dict) -> dict:
     """Device time of each call's kernels, back to back: the median over
-    reps samples of inner calls each. A wrapper spends tens of
-    microseconds of host time a call, as long as some of these kernels
-    run, so each sample first queues a sleep kernel long enough for the
-    host to queue all inner calls behind it; the events then time the card
-    alone. Returns {label: ms a call}.
+    REPS samples of CALLS calls each. A wrapper spends tens of microseconds
+    of host time a call, as long as some of these kernels run, so each
+    sample first queues a sleep kernel long enough for the host to queue
+    all its calls behind it; the events then time the card alone (every
+    kernel the call launches, a fill of its output included). Returns
+    {label: ms a call}.
     """
     times = {}
     for label, fn in calls.items():
         fn()
         samples = []
-        for _ in range(reps):
+        for _ in range(REPS):
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
             torch.cuda._sleep(SLEEP_CYCLES)
             start.record()
-            for _ in range(inner):
+            for _ in range(CALLS):
                 fn()
             stop.record()
             stop.synchronize()
-            samples.append(start.elapsed_time(stop) / inner)
+            samples.append(start.elapsed_time(stop) / CALLS)
         times[label] = statistics.median(samples)
     return times
 
@@ -145,14 +149,30 @@ def slope_ns(t_lo_ms: float, t_hi_ms: float, steps: int) -> float:
     return (t_hi_ms - t_lo_ms) * 1e6 / steps
 
 
-def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> None:
-    """Raise unless got equals want bit for bit (tolerance zero: the probes
-    compute integer functions)."""
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest |got - want| over the elements, as integers; raises if
+    the shapes or dtypes differ."""
     if got.shape != want.shape or got.dtype != want.dtype:
-        raise AssertionError(f"{name}: {got.shape} {got.dtype} vs {want.shape} {want.dtype}")
-    if not torch.equal(got, want):
-        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        raise AssertionError(f"shape/dtype differ: {got.shape} {got.dtype} vs "
+                             f"{want.shape} {want.dtype}")
+    if got.numel() == 0:
+        return 0
+    return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+
+def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> int:
+    """got's max_abs_err against want; raises unless it is 0 (tolerance
+    zero: the probes compute integer functions)."""
+    err = max_abs_err(got, want)
+    if err:
         raise AssertionError(f"{name}: kernel differs from its plain version (max |err| {err})")
+    return err
+
+
+def check_calls(name: str, calls: dict, want) -> int:
+    """Launch every timed call once and hold its output against want(label),
+    the plain version at the same shape; returns the max_abs_err (0)."""
+    return max(check_equal(f"{name} {label}", fn(), want(label)) for label, fn in calls.items())
 
 
 def tile(x: torch.Tensor, n: int) -> torch.Tensor:

@@ -31,6 +31,7 @@ from ..ops.bitpack import MASK32, i32, u32
 from . import (
     WARPS_PER_SM,
     card,
+    check_calls,
     check_equal,
     grid,
     is_cuda,
@@ -112,38 +113,49 @@ def step_chain_plain(x: torch.Tensor, lut: torch.Tensor, steps: int, kind: str) 
 
 def run(dev: torch.device | None = None) -> dict:
     """Check every kind and form against the plain version at P4's shape,
-    time each at P4's steps on 64 warps an SM, and sweep the occupancy.
-    Returns {"configs": {(kind, form): {"ms", "plain_ms", "sweep": {warps:
-    ns per step}}}, "n": elements timed}. Kernel times
-    are the kernel alone."""
+    time each at P4's steps on 64 warps an SM, and sweep the occupancy;
+    every timed launch (each block size of the sweep at both step counts)
+    is also held against the plain version at its own shape. Returns
+    {"configs": {(kind, form): {"ms", "plain_ms", "sweep": {warps: ns per
+    step}}}, "n": elements timed, "max_abs_err": {"step_chain": over every
+    comparison}}. Kernel times are the kernel alone."""
     dev = on_card(dev)
     x_np, lut_np = p4_inputs()
     x = torch.from_numpy(x_np.view(np.int32)).to(dev)
     lut = torch.from_numpy(lut_np.view(np.int32)).to(dev)
-    # P4's X tiled to one wave at 64 warps an SM
+    # P4's X tiled to one wave at 64 warps an SM; each sweep shape takes a
+    # prefix of it, so the plain version at the largest shape holds them all
     n_max, block_max = sweep_shape(max(WARPS_PER_SM), dev)
     xs_all = tile(x, n_max)
     res = {"configs": {}, "n": n_max}
+    err = 0
+    plain_ms, want = {}, {}
+    for kind in KINDS:
+        plain_ms[kind] = median_ms(functools.partial(step_chain_plain, xs_all, lut, INNER, kind))
+        for k in (INNER,) + SWEEP_STEPS:
+            want[kind, k] = step_chain_plain(xs_all, lut, k, kind)
     calls = {}
     for kind, form in configs():
-        check_equal(f"step_chain {kind} {form}", step_chain(x, lut, INNER, kind, form),
-                    step_chain_plain(x, lut, INNER, kind))
-        res["configs"][kind, form] = {
-            "plain_ms": median_ms(functools.partial(step_chain_plain, xs_all, lut, INNER, kind),
-                                  warmup=1)}
-        calls[kind, form, "ms"] = functools.partial(step_chain, xs_all, lut, INNER, kind, form,
-                                                    block_max)
+        err = max(err, check_equal(f"step_chain {kind} {form}",
+                                   step_chain(x, lut, INNER, kind, form),
+                                   step_chain_plain(x, lut, INNER, kind)))
+        res["configs"][kind, form] = {"plain_ms": plain_ms[kind]}
+        calls[kind, form, 64, INNER] = functools.partial(step_chain, xs_all, lut, INNER, kind,
+                                                         form, block_max)
         for w in WARPS_PER_SM:
             n, block = sweep_shape(w, dev)
             for k in SWEEP_STEPS:
                 calls[kind, form, w, k] = functools.partial(step_chain, xs_all[:n], lut, k, kind,
                                                             form, block)
+    err = max(err, check_calls(
+        "step_chain", calls, lambda label: want[label[0], label[3]][:sweep_shape(label[2], dev)[0]]))
     t = kernel_ms(calls)
     lo, hi = SWEEP_STEPS
     for (kind, form), r in res["configs"].items():
-        r["ms"] = t[kind, form, "ms"]
+        r["ms"] = t[kind, form, 64, INNER]
         r["sweep"] = {w: slope_ns(t[kind, form, w, lo], t[kind, form, w, hi], hi - lo)
                       for w in WARPS_PER_SM}
+    res["max_abs_err"] = {"step_chain": err}
     return res
 
 

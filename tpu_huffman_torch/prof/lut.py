@@ -38,6 +38,7 @@ from . import (
     FILL_ELEMENTS,
     WARPS_PER_SM,
     card,
+    check_calls,
     check_equal,
     grid,
     is_cuda,
@@ -214,27 +215,35 @@ def chain_cases(dev: torch.device) -> dict:
 def run(dev: torch.device | None = None) -> dict:
     """Check every form against the plain version at the scripts' shapes,
     then time it at FILL_ELEMENTS elements and sweep lut_chain's occupancy.
+    Every timed launch (each form at both round counts, each block size of
+    the sweep) is also held against the plain version at its own shape.
 
     Returns {"chain": {case: {form: {...}}}, "wide": {form: {...}},
     "sweep": {form: {warps: ns per dependent lookup}}, "fill": the timed
-    tensors}. Kernel times are the kernel alone; ns per
-    lookup is the slope between two round counts over the elements.
+    tensors, "max_abs_err": {kernel: over every comparison}}. Kernel times
+    are the kernel alone; ns per lookup is the slope between two round
+    counts over the elements.
     """
     dev = on_card(dev)
     res = {"chain": {}, "wide": {}, "sweep": {}, "fill": {}}
+    err = {"lut_chain": 0, "lut_wide": 0}
     cases = chain_cases(dev)
-    calls = {}
+    calls, want = {}, {}
     for name, (x, table, acc) in cases.items():
-        want = lut_chain_plain(x, table, R_CHAIN, acc)
+        plain = lut_chain_plain(x, table, R_CHAIN, acc)
         for form in FORMS:
-            check_equal(f"lut_chain {name} {form}", lut_chain(x, table, R_CHAIN, acc, form), want)
+            err["lut_chain"] = max(err["lut_chain"], check_equal(
+                f"lut_chain {name} {form}", lut_chain(x, table, R_CHAIN, acc, form), plain))
         xf = tile(x, FILL_ELEMENTS)
         res["fill"][name] = (xf, table, acc)
         res["chain"][name] = {"plain_ms": median_ms(
             functools.partial(lut_chain_plain, xf, table, R_CHAIN, acc))}
-        for form in FORMS:
-            for k in (R_CHAIN, 4 * R_CHAIN):
+        for k in (R_CHAIN, 4 * R_CHAIN):
+            want[name, k] = lut_chain_plain(xf, table, k, acc)
+            for form in FORMS:
                 calls[name, form, k] = functools.partial(lut_chain, xf, table, k, acc, form)
+    err["lut_chain"] = max(err["lut_chain"], check_calls(
+        "lut_chain", calls, lambda label: want[label[0], label[2]]))
     t = kernel_ms(calls)
     for name in cases:
         plain_ms = res["chain"][name].pop("plain_ms")
@@ -249,39 +258,52 @@ def run(dev: torch.device | None = None) -> dict:
     p32 = torch.from_numpy(p32_np.view(np.int32)).to(dev)
     lens = torch.from_numpy(len_np).to(dev)
     x0 = torch.from_numpy(x_np).to(dev)
-    want = lut_wide_plain(x0, p32, lens, R_WIDE)
+    plain = lut_wide_plain(x0, p32, lens, R_WIDE)
     # the script's own truth, on the host
     idx = (x_np[None] + np.arange(R_WIDE).reshape(-1, 1, 1, 1)) & 255
     truth = np.bitwise_xor.reduce(p32_np[idx], axis=0).view(np.int32) ^ len_np[idx].sum(
         axis=0, dtype=np.int32)
-    check_equal("lut_wide plain vs prof_mxu_lut.py's truth", want.cpu(), torch.from_numpy(truth))
+    check_equal("lut_wide plain vs prof_mxu_lut.py's truth", plain.cpu(), torch.from_numpy(truth))
     for form in WIDE_FORMS:
-        check_equal(f"lut_wide {form}", lut_wide(x0, p32, lens, R_WIDE, form), want)
+        err["lut_wide"] = max(err["lut_wide"], check_equal(
+            f"lut_wide {form}", lut_wide(x0, p32, lens, R_WIDE, form), plain))
     xf = tile(x0, FILL_ELEMENTS)
     res["fill"]["P6"] = (xf, p32, lens)
     plain_ms = median_ms(functools.partial(lut_wide_plain, xf, p32, lens, R_WIDE))
-    t = kernel_ms({(form, k): functools.partial(lut_wide, xf, p32, lens, k, form)
-                   for form in WIDE_FORMS for k in (R_WIDE // 4, R_WIDE)})
+    rounds = (R_WIDE // 4, R_WIDE)
+    want = {k: lut_wide_plain(xf, p32, lens, k) for k in rounds}
+    calls = {(form, k): functools.partial(lut_wide, xf, p32, lens, k, form)
+             for form in WIDE_FORMS for k in rounds}
+    err["lut_wide"] = max(err["lut_wide"], check_calls(
+        "lut_wide", calls, lambda label: want[label[1]]))
+    t = kernel_ms(calls)
     for form in WIDE_FORMS:
         lo, hi = t[form, R_WIDE // 4], t[form, R_WIDE]
         res["wide"][form] = {"ms": hi, "plain_ms": plain_ms,
                              "ns_per_lookup": slope_ns(lo, hi, R_WIDE - R_WIDE // 4) / xf.numel()}
 
     # ns per dependent lookup: P3's 32-bit table (the decode LUT's entry
-    # width), one chain a thread, at 1, 8 and 64 warps an SM
+    # width), one chain a thread, at 1, 8 and 64 warps an SM; each sweep
+    # shape takes a prefix of the largest one's elements
     x3, t3, _ = cases["P3"]
+    xs_all = x3.reshape(-1)[:sweep_shape(max(WARPS_PER_SM), dev)[0]].contiguous()
+    want = {k: lut_chain_plain(xs_all, t3, k) for k in SWEEP_ROUNDS}
     calls = {}
     for form in FORMS:
         for w in WARPS_PER_SM:
             n, block = sweep_shape(w, dev)
-            xs = x3.reshape(-1)[:n].contiguous()
             for k in SWEEP_ROUNDS:
-                calls[form, w, k] = functools.partial(lut_chain, xs, t3, k, False, form, block)
+                calls[form, w, k] = functools.partial(lut_chain, xs_all[:n], t3, k, False, form,
+                                                      block)
+    err["lut_chain"] = max(err["lut_chain"], check_calls(
+        "lut_chain sweep", calls,
+        lambda label: want[label[2]][:sweep_shape(label[1], dev)[0]]))
     t = kernel_ms(calls)
     lo, hi = SWEEP_ROUNDS
     for form in FORMS:
         res["sweep"][form] = {w: slope_ns(t[form, w, lo], t[form, w, hi], hi - lo)
                               for w in WARPS_PER_SM}
+    res["max_abs_err"] = err
     return res
 
 

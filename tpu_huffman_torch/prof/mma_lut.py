@@ -31,6 +31,7 @@ from .. import _build
 from ..ops.bitpack import MASK32, i32, u32
 from . import (
     card,
+    check_calls,
     check_equal,
     grid,
     is_cuda,
@@ -64,7 +65,7 @@ def chain_table(table: torch.Tensor) -> torch.Tensor:
 
 
 def _launch(x: torch.Tensor, tab: torch.Tensor, rounds: int, mode: int, name: str):
-    tab = tab.to(torch.bfloat16).contiguous()
+    """The kernel alone, on a (256, 8) bf16 table already on the card."""
     out = torch.empty_like(x)
     n = x.numel()
     err = _build.load().thc_probe_mma_lut(
@@ -99,7 +100,7 @@ def lut_wide_mma(x0: torch.Tensor, p32: torch.Tensor, lens: torch.Tensor,
     _check(x0, p32, lens)
     if not is_cuda(x0):
         return lut_wide_mma_plain(x0, p32, lens, rounds)
-    return _launch(x0, wide_table(p32, lens), rounds, 0, "lut_wide_mma")
+    return _launch(x0, wide_table(p32, lens).to(torch.bfloat16), rounds, 0, "lut_wide_mma")
 
 
 def lut_wide_mma_plain(x0: torch.Tensor, p32: torch.Tensor, lens: torch.Tensor,
@@ -123,7 +124,8 @@ def lut_chain_mma(x: torch.Tensor, table: torch.Tensor, rounds: int,
     _check(x, table)
     if not is_cuda(x):
         return lut_chain_mma_plain(x, table, rounds, accumulate)
-    return _launch(x, chain_table(table), rounds, 2 if accumulate else 1, "lut_chain_mma")
+    return _launch(x, chain_table(table).to(torch.bfloat16), rounds, 2 if accumulate else 1,
+                   "lut_chain_mma")
 
 
 def lut_chain_mma_plain(x: torch.Tensor, table: torch.Tensor, rounds: int,
@@ -138,41 +140,55 @@ def lut_chain_mma_plain(x: torch.Tensor, table: torch.Tensor, rounds: int,
 
 def run(dev: torch.device | None = None) -> dict:
     """Check both kernels against their plain versions and against
-    lut_wide / lut_chain at P6's and P1's shapes, then time them at
-    one wave of 270,336 elements. Returns {"wide": {...}, "chain": {...},
-    "n": elements timed, "fill": the timed tensors}."""
+    lut_wide / lut_chain at P6's and P1's shapes, then time them at one
+    wave of 270,336 elements, each launch timed also held against the
+    plain version there. The timed launches take their bf16 tables built
+    once, so the times are the mma kernel alone. Returns {"wide": {...},
+    "chain": {...}, "n": elements timed, "fill": the timed tensors,
+    "max_abs_err": {kernel: over every comparison}}."""
     dev = on_card(dev)
     p32_np, len_np, x_np = _lut.p6_inputs()
     p32 = torch.from_numpy(p32_np.view(np.int32)).to(dev)
     lens = torch.from_numpy(len_np).to(dev)
     x0 = torch.from_numpy(x_np).to(dev)
     got = lut_wide_mma(x0, p32, lens, _lut.R_WIDE)
-    check_equal("lut_wide_mma vs plain", got, lut_wide_mma_plain(x0, p32, lens, _lut.R_WIDE))
-    check_equal("lut_wide_mma vs lut_wide", got, _lut.lut_wide(x0, p32, lens, _lut.R_WIDE))
+    err = {"lut_wide_mma": max(
+        check_equal("lut_wide_mma vs plain", got, lut_wide_mma_plain(x0, p32, lens, _lut.R_WIDE)),
+        check_equal("lut_wide_mma vs lut_wide", got, _lut.lut_wide(x0, p32, lens, _lut.R_WIDE)))}
     table_np, x1_np = _lut.p1_inputs()
     table = torch.from_numpy(table_np).to(dev)
     x1 = torch.from_numpy(x1_np).to(dev)
     got = lut_chain_mma(x1, table, _lut.R_CHAIN, True)
-    check_equal("lut_chain_mma vs plain", got,
-                lut_chain_mma_plain(x1, table, _lut.R_CHAIN, True))
-    check_equal("lut_chain_mma vs lut_chain", got, _lut.lut_chain(x1, table, _lut.R_CHAIN, True))
+    err["lut_chain_mma"] = max(
+        check_equal("lut_chain_mma vs plain", got,
+                    lut_chain_mma_plain(x1, table, _lut.R_CHAIN, True)),
+        check_equal("lut_chain_mma vs lut_chain", got,
+                    _lut.lut_chain(x1, table, _lut.R_CHAIN, True)))
 
     # one wave: the plain version and the library product build the
     # one-hot in device memory, 2 KB a lookup
     n = one_wave(dev)
     xw, xc = tile(x0, n), tile(x1, n)
     res = {"n": n, "fill": {"P6": (xw, p32, lens), "P1": (xc, table)}}
-    kernels = {"wide": lambda k: lut_wide_mma(xw, p32, lens, k),
-               "chain": lambda k: lut_chain_mma(xc, table, k, True)}
-    plains = {"wide": lambda: lut_wide_mma_plain(xw, p32, lens, _lut.R_WIDE),
-              "chain": lambda: lut_chain_mma_plain(xc, table, _lut.R_CHAIN, True)}
+    tab_w = wide_table(p32, lens).to(torch.bfloat16)
+    tab_c = chain_table(table).to(torch.bfloat16)
+    kernels = {"wide": lambda k: _launch(xw, tab_w, k, 0, "lut_wide_mma"),
+               "chain": lambda k: _launch(xc, tab_c, k, 2, "lut_chain_mma")}
+    plains = {"wide": lambda k: lut_wide_mma_plain(xw, p32, lens, k),
+              "chain": lambda k: lut_chain_mma_plain(xc, table, k, True)}
     # (the script's rounds, another round count for the slope)
     rounds = {"wide": (_lut.R_WIDE, _lut.R_WIDE // 4), "chain": (_lut.R_CHAIN, 4 * _lut.R_CHAIN)}
-    t = kernel_ms({(name, k): functools.partial(kernels[name], k)
-                   for name in kernels for k in rounds[name]})
+    calls = {(name, k): functools.partial(kernels[name], k)
+             for name in kernels for k in rounds[name]}
+    for name in kernels:
+        err[f"lut_{name}_mma"] = max(err[f"lut_{name}_mma"], check_calls(
+            f"lut_{name}_mma", {label: fn for label, fn in calls.items() if label[0] == name},
+            lambda label: plains[name](label[1])))
+    t = kernel_ms(calls)
     for name, (r, other) in rounds.items():
-        res[name] = {"ms": t[name, r], "plain_ms": median_ms(plains[name], warmup=1),
+        res[name] = {"ms": t[name, r], "plain_ms": median_ms(functools.partial(plains[name], r)),
                      "ns_per_lookup": slope_ns(t[name, other], t[name, r], r - other) / n}
+    res["max_abs_err"] = err
     return res
 
 

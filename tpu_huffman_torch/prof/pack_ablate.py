@@ -124,9 +124,12 @@ def pack_ablate_plain(symbols: torch.Tensor, dt: DeviceTable, mode: str, lay=Non
 
 def run(dev: torch.device | None = None) -> dict:
     """Every mode on P5's 8 MiB against the plain version (``full`` also
-    against ``encode_pack``'s words), then timed. Returns {"modes": {mode:
-    {"ms", "plain_ms"}}, "n", "n_chunks", "n_words",
-    "pack_ms": encode_pack's time beside ``full``}."""
+    against ``encode_pack``'s words), then timed at that shape. ``full``
+    and ``encode_pack`` each zero their output words before the kernel,
+    and their times include that fill, which is also timed alone. Returns
+    {"modes": {mode: {"ms", "plain_ms"}}, "n", "n_chunks", "n_words",
+    "pack_ms": encode_pack's time beside ``full``, "fill_ms",
+    "max_abs_err": {"pack_ablate": over every comparison}}."""
     dev = on_card(dev)
     sym = torch.from_numpy(p5_inputs()).to(dev)
     dt = DeviceTable.for_table(load_static_test_table(), dev)
@@ -135,19 +138,24 @@ def run(dev: torch.device | None = None) -> dict:
     words = pack_encode.pack(sym, dt, CHUNK, offs, total, DEFAULT_EOS_PADDING, n_words)
     res = {"modes": {}, "n": sym.numel(), "n_chunks": offs.numel(),
            "n_words": n_words}
+    err = 0
     for mode in MODES:
         got = pack_ablate(sym, dt, mode, lay)
-        check_equal(f"pack_ablate {mode}", got, pack_ablate_plain(sym, dt, mode, lay))
+        err = max(err, check_equal(f"pack_ablate {mode}", got,
+                                   pack_ablate_plain(sym, dt, mode, lay)))
         if mode == "full":
-            check_equal("pack_ablate full vs encode_pack", got, words)
-        res["modes"][mode] = {"plain_ms": median_ms(lambda: pack_ablate_plain(sym, dt, mode, lay))}
+            err = max(err, check_equal("pack_ablate full vs encode_pack", got, words))
+        res["modes"][mode] = {"plain_ms": median_ms(
+            functools.partial(pack_ablate_plain, sym, dt, mode, lay))}
     calls = {m: functools.partial(pack_ablate, sym, dt, m, lay) for m in MODES}
     calls["encode_pack"] = functools.partial(pack_encode.pack, sym, dt, CHUNK, offs, total,
                                              DEFAULT_EOS_PADDING, n_words)
+    calls["fill"] = functools.partial(torch.zeros, n_words, dtype=torch.int32, device=dev)
     t = kernel_ms(calls)
     for mode in MODES:
         res["modes"][mode]["ms"] = t[mode]
-    res["pack_ms"] = t["encode_pack"]
+    res["pack_ms"], res["fill_ms"] = t["encode_pack"], t["fill"]
+    res["max_abs_err"] = {"pack_ablate": err}
     return res
 
 
@@ -158,7 +166,8 @@ def main() -> None:
     for mode, r in res["modes"].items():
         print(f"pack_ablate {mode:7s}: {r['ms']:.4f} ms ({N / r['ms'] / 1e6:.1f} GB/s of "
               f"symbols; plain {r['plain_ms']:.3f} ms); equal to plain")
-    print(f"encode_pack beside it: {res['pack_ms']:.4f} ms; full's words equal its words")
+    print(f"encode_pack beside it: {res['pack_ms']:.4f} ms; full's words equal its words; "
+          f"full and encode_pack include the {res['fill_ms']:.4f} ms fill of the output words")
 
 
 if __name__ == "__main__":

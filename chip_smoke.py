@@ -17,12 +17,18 @@ Phases (any failure raises and the script exits non-zero):
        same bytes taken as a stream (a foreign stream full of invalid
        windows), and the HPACK stream of them (30-bit codes, level-1 LUT in
        global memory), each on pass 0 (segment-aligned entries) and on the
-       converged pass;
+       fixpoint's converged pass, and in the three forms the stitch launches
+       (pass 0 with starts and blast, the patch with its code cap, a repair
+       with segment ids and dead lanes); the stitched body and tail start
+       equal the fixpoint's (the random-byte stream, whose true chain meets
+       invalid windows, stays unresolved);
      - stream_decode at 4 KiB: no cap, a cap mid-stream (OUTPUT_FULL), and
        a zero blob (UNKNOWN_SYMBOL);
   3. the golden vectors through the public encode/encode_with_index and
      decode; an unknown symbol raising with the right index on encode and
-     zeros raising on decode; max_output giving the first bytes of 1 MiB;
+     zeros raising on decode (from the fixpoint fallback); max_output giving
+     the first bytes of 1 MiB; the HPACK table built at root_bits 16 through
+     decode, decode_indexed and HuffmanDecoder on 1 MiB of random bytes;
   4. two paths at full size through the public API, each with the launch
      counters reset just before it and read just after, every kernel of the
      path launched: the indexed path (encode_with_index then
@@ -30,11 +36,16 @@ Phases (any failure raises and the script exits non-zero):
      stream with no index), on the static table at 8 and 64 MiB of random
      bytes and the HPACK table at 8 MiB of header text; the decoded bytes
      equal the input, and the encoded bytes and index equal the plain
-     version's; the fixpoint passes of each decode are printed;
+     version's; each decode takes the stitch (2 selfsync_decode launches,
+     3 with a repair, never the fixpoint), its launches and repaired
+     segments printed;
   5. timings with CUDA events at 8 MiB: each kernel's wrapper beside its
      plain version (prof.median_ms: median of 11 samples of 5 calls after
-     a warm-up), each kernel alone by torch.profiler, the device time of one decode by kernel, and the
-     public calls end to end from host bytes, in GB/s of plaintext;
+     a warm-up), each kernel alone by torch.profiler, the stitch's three
+     forms with their bounds, the stitch's torch ops by torch.profiler, the
+     device time of one decode by kernel, the host syncs of one decode
+     (torch.cuda.set_sync_debug_mode), and the public calls end to end from
+     host bytes, in GB/s of plaintext;
   6. the streaming path (bench_suite.bench_streaming on the port): 64 MiB of
      random bytes (seed 11) on the static table through a capped
      HuffmanEncoder.encode_chunk loop at 1 MiB (its bytes equal tt.encode's),
@@ -42,14 +53,15 @@ Phases (any failure raises and the script exits non-zero):
      symbols a call after one feed (both give the input back), with the
      launch counters reset before each loop and every kernel of the path
      launched (count, pack, selfsync_decode with starts, stream_decode); the
-     calls, the passes per drain, the median ms per call of the first and
+     calls, the selfsync_decode launches per drain and the stitch outcomes
+     of each loop, the median ms per call of the first and
      last eight calls of each loop, and 64 MiB / (t_enc + t_dec) in GB/s;
      then selfsync_decode with starts against its plain version and timed
      at one drain call's shape;
   7. the protocol on the card: a 256 KiB stream at 4 KiB chunks, the
      decoder's threshold lowered so that the self-sync words drains run;
      every call's result, overflow_bits, leftover_bits and state equal
-     those on device="cpu";
+     those on device="cpu"; the stitch outcomes on the card printed;
   8. C2: one uncapped encode_chunk of a stream just past 2^31 bits: no
      segmenting (one pack launch), bytes equal tt.encode's, tt.decode gives
      the input back;
@@ -88,6 +100,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -246,6 +259,76 @@ def _timed_calls(call, first_arg, next_arg, done):
         arg = next_arg(r)
 
 
+def stitch_calls(torch, selfsync, words, n_segs: int, seg_bits: int, dt, seed: int = SEED):
+    """One stitch of a stream's kernel segments from bit 0, with the
+    selfsync_decode launches it makes recorded as (args, kwargs): "full"
+    (starts and blast), "patch" (the code cap) and "repair" (segment ids).
+    When the stitch made no repair launch, the repair form takes R_MAX
+    segments picked from `seed` at their true entries, the last quarter of
+    its lanes dead. Returns (the calls, the stitch's result)."""
+    real = selfsync.decode_segments
+    seen = []
+
+    def spy(*args, **kw):
+        seen.append((args, kw))
+        return real(*args, **kw)
+
+    selfsync.decode_segments = spy
+    try:
+        stitched = selfsync.stitch(words, 0, (n_segs, seg_bits), dt)
+    finally:
+        selfsync.decode_segments = real
+    calls = {"full": seen[0], "patch": seen[1]}
+    if len(seen) > 2:
+        calls["repair"] = seen[2]
+    else:
+        ids = np.random.default_rng(seed).choice(n_segs, size=min(selfsync.R_MAX, n_segs),
+                                                 replace=False).astype(np.int32)
+        ids[-(len(ids) // 4):] = -1
+        seg_ids = torch.from_numpy(ids).to(words.device)
+        entries1 = seen[1][0][1]
+        ent = torch.where(seg_ids >= 0, entries1[seg_ids.clamp(min=0).long()], 0)
+        max_syms = selfsync.max_symbols(dt.table, seg_bits)
+        starts = torch.full((len(ids), max_syms), selfsync.NO_START, dtype=torch.int16,
+                            device=words.device)
+        calls["repair"] = ((words, ent, seg_bits, max_syms, dt),
+                           {"starts": starts, "seg_ids": seg_ids})
+    return calls, stitched
+
+
+def stitch_form(selfsync, args, kw, plain: bool = False):
+    """A recorded selfsync_decode launch again, on fresh starts and blast
+    buffers (NO_START and 0, as the stitch gives them), by the kernel or
+    its plain version: its four outputs, then the starts and blast."""
+    kw = dict(kw)
+    for key, fill in (("starts", selfsync.NO_START), ("blast", 0)):
+        if key in kw:
+            kw[key] = kw[key].new_full(kw[key].shape, fill)
+    fn = selfsync.decode_segments_plain if plain else selfsync.decode_segments
+    return (*fn(*args, **kw), *(kw[k] for k in ("starts", "blast") if k in kw))
+
+
+def stitch_form_work(form: str, args, kw, outs, seg_bits: int, seg_words: int) -> tuple:
+    """(bytes moved, integer operations) of one launch of a stitch form:
+    the stream bits its lanes cover, read once (the full pass: every
+    segment's words; the patch: entry to exit; a repair: its live
+    segments), the entries and segment ids, each symbol's byte and start,
+    the per-lane outputs and the LUT's level 0; and OPS_PER_SYMBOL's count
+    for the starts form per symbol."""
+    words, entries, dt = args[0], args[1], args[4]
+    lanes = entries.numel()
+    n_sym = int(outs[1].sum())
+    if form == "full":
+        covered = 4 * min(words.numel(), lanes * seg_words + 1)
+    elif form == "patch":
+        covered = int((outs[2].long() - entries.long()).clamp(min=0).sum()) // 8
+    else:
+        covered = int((kw["seg_ids"] >= 0).sum()) * seg_bits // 8
+    per_lane = 4 * (1 + ("seg_ids" in kw) + 3 + ("blast" in kw))
+    return (covered + per_lane * lanes + 3 * n_sym + 4 * dt.l0.numel(),
+            OPS_PER_SYMBOL["selfsync_decode_starts"] * n_sym)
+
+
 def phase_streaming(torch, tt, table, counters, dev, stream_mb: int = 64,
                     cap: int = MIB) -> dict:
     """bench_suite.bench_streaming on the port: a capped encode_chunk loop,
@@ -278,16 +361,16 @@ def phase_streaming(torch, tt, table, counters, dev, stream_mb: int = 64,
 
     def drain_loop(encoded):
         dec = tt.HuffmanDecoder(table, device=dev)
-        passes = []
+        per_call = []
 
         def call(feed):
             before = selfsync.launches["selfsync_decode"]
             r = dec.decode_chunk(feed, capacity=cap)
-            passes.append(selfsync.launches["selfsync_decode"] - before)
+            per_call.append(selfsync.launches["selfsync_decode"] - before)
             return r
 
         results, times = _timed_calls(call, encoded, lambda r: b"", lambda r: r.done)
-        return results, times, passes
+        return results, times, per_call
 
     # warm-up: each loop once on a 4-chunk stream (allocator, kernel load)
     warm = data[: 4 * cap]
@@ -300,7 +383,7 @@ def phase_streaming(torch, tt, table, counters, dev, stream_mb: int = 64,
 
     # the three loops twice: host-clock times vary from run to run
     for rep in (1, 2):
-        out = {}
+        out, ends = {}, {}
         _reset(*counters)
         t0 = time.perf_counter()
         enc_results, enc_times = encode_loop(data)
@@ -310,19 +393,19 @@ def phase_streaming(torch, tt, table, counters, dev, stream_mb: int = 64,
         if encoded != want:
             raise AssertionError("streaming encode differs from tt.encode of the same input")
 
-        _reset(*counters)
+        _reset(*counters, selfsync.outcomes)
         t0 = time.perf_counter()
         feed_results, feed_times = feed_loop(encoded)
         t_dec = time.perf_counter() - t0
-        out["feed"] = launched()
+        out["feed"], ends["feed"] = launched(), dict(selfsync.outcomes)
         if b"".join(r.data for r in feed_results) != data or not feed_results[-1].done:
             raise AssertionError("streaming decode of input chunks differs from the input")
 
-        _reset(*counters)
+        _reset(*counters, selfsync.outcomes)
         t0 = time.perf_counter()
-        drain_results, drain_times, passes = drain_loop(encoded)
+        drain_results, drain_times, per_call = drain_loop(encoded)
         t_drain = time.perf_counter() - t0
-        out["drain"] = launched()
+        out["drain"], ends["drain"] = launched(), dict(selfsync.outcomes)
         if b"".join(r.data for r in drain_results) != data:
             raise AssertionError("capped drain differs from the input")
 
@@ -332,7 +415,8 @@ def phase_streaming(torch, tt, table, counters, dev, stream_mb: int = 64,
             if not all(out[loop][k] for k in needed):
                 raise AssertionError(f"streaming {loop} loop did not launch {needed}: {out[loop]}")
         total = {k: sum(out[loop][k] for loop in out) for k in out["encode"]}
-        if not all(total.values()):
+        # a repair launch runs only where a segment fails to merge
+        if not all(v for k, v in total.items() if k != "selfsync_decode_repair"):
             raise AssertionError(f"a kernel of the streaming path never ran: {total}")
         for loop, times in ((f"encode_chunk, capacity {cap} bytes", enc_times),
                             (f"decode_chunk, {cap}-byte input chunks", feed_times),
@@ -349,9 +433,10 @@ def phase_streaming(torch, tt, table, counters, dev, stream_mb: int = 64,
               f"({n / t_dec / 1e9:.3f} GB/s), capped drain {t_drain * 1e3:.1f} ms "
               f"({n / t_drain / 1e9:.3f} GB/s, {len(drain_times)} calls); "
               f"{stream_mb} MiB / (t_enc + t_dec) = {gbs:.4f} GB/s")
-        print(f"phase 6 streaming run {rep} fixpoint passes per drain call: "
-              f"{dict(sorted(collections.Counter(passes).items()))}; launches: encode loop "
-              f"{out['encode']}, feed loop {out['feed']}, drain loop {out['drain']}")
+        print(f"phase 6 streaming run {rep} selfsync_decode launches per drain call: "
+              f"{dict(sorted(collections.Counter(per_call).items()))}; launches: encode loop "
+              f"{out['encode']}, feed loop {out['feed']}, drain loop {out['drain']}; "
+              f"stitch outcomes: feed loop {ends['feed']}, drain loop {ends['drain']}")
         if rep == 1:
             first_launches = total
 
@@ -414,10 +499,13 @@ def phase_protocol(torch, tt, table, counters, dev) -> None:
     data = np.random.default_rng(12).integers(0, 256, size=256 * 1024, dtype=np.uint8).tobytes()
     saved = tstream.BULK_DECODE_THRESHOLD
     tstream.BULK_DECODE_THRESHOLD = 1024
+    from tpu_huffman_torch.ops import selfsync
+
     try:
-        _reset(*counters)
+        _reset(*counters, selfsync.outcomes)
         card = _protocol(tt, table, data, dev, 4096)
         launched = {k: v for c in counters for k, v in c.items()}
+        ends = dict(selfsync.outcomes)
         cpu = _protocol(tt, table, data, "cpu", 4096)
     finally:
         tstream.BULK_DECODE_THRESHOLD = saved
@@ -428,12 +516,12 @@ def phase_protocol(torch, tt, table, counters, dev) -> None:
     if b"".join(c[0] for c in card["feed"]) != data or b"".join(
             c[0] for c in card["drain"]) != data:
         raise AssertionError("protocol check: decoded bytes differ from the input")
-    if not all(launched.values()):
+    if not all(v for k, v in launched.items() if k != "selfsync_decode_repair"):
         raise AssertionError(f"protocol check: a kernel did not run on the card: {launched}")
     print(f"phase 7 protocol, 256 KiB at 4 KiB chunks, words drains: {len(card['encode'])} "
           f"encode, {len(card['feed'])} feed and {len(card['drain'])} drain calls equal the "
           f"CPU's (bytes, consumed, done, overflow_bits, leftover_bits, state); card "
-          f"launches {launched}")
+          f"launches {launched}; stitch outcomes on the card {ends}")
 
 
 def phase_c2(torch, tt, table, counters, dev, limit_bits: int = 1 << 31) -> None:
@@ -766,6 +854,7 @@ def main() -> int:
     errs.update(selfsync_decode=0, stream_decode=0)
     enc_static = tt.encode(data8, static)
     foreign = {}
+    stitch_errs, stitch_shapes = {}, {}
     for name, table, enc in (("static", static, enc_static),
                              ("static random bytes as the stream", static, data8),
                              ("hpack", hpack, tt.encode(data8, hpack))):
@@ -791,6 +880,34 @@ def main() -> int:
             print(f"phase 2 selfsync_decode {name}, {label}: max_abs_err {e}, with starts "
                   f"{e_s} ({n_segs} segments of {seg_bits} bits, {int(got[1].sum())} symbols, "
                   f"{int((got[3] != 0).sum())} segments with an invalid window)")
+        # the stitch's three launch forms at the launches it makes here, and
+        # its body and tail start against the fixpoint's
+        calls, stitched = stitch_calls(torch, selfsync, words, n_segs, seg_bits, dt)
+        for form, (args, kw) in calls.items():
+            got, want = stitch_form(selfsync, args, kw), stitch_form(selfsync, args, kw, plain=True)
+            torch.cuda.synchronize()
+            e = max(max_abs_err(a, b) for a, b in zip(got, want))
+            stitch_errs[form] = max(stitch_errs.get(form, 0), e)
+            print(f"phase 2 selfsync_decode {name}, stitch {form}: max_abs_err {e} "
+                  f"({args[1].numel()} lanes, {int(got[1].sum())} symbols"
+                  + (f", {int((kw['seg_ids'] >= 0).sum())} live" if form == "repair" else "")
+                  + ")")
+        syms_f, counts_f, exits_f, bad_f = selfsync._fixpoint(words, n_segs, seg_bits, 0,
+                                                               max_syms, dt)[:4]
+        if stitched is None:
+            if not bool((bad_f != 0).any()):
+                raise AssertionError(f"{name}: the stitch left a clean stream unresolved")
+            print(f"phase 2 stitch {name}: unresolved, as it must be: the fixpoint's chain "
+                  f"meets invalid windows in {int((bad_f != 0).sum())} segments")
+        else:
+            body, tail_start, _total, _cut = stitched
+            if not (torch.equal(body, selfsync._body(syms_f, counts_f)) and tail_start
+                    == n_segs * seg_bits + int(exits_f[-1]) - seg_bits):
+                raise AssertionError(f"{name}: the stitched body or tail start differs from "
+                                     f"the fixpoint's")
+            print(f"phase 2 stitch {name}: body ({body.numel()} symbols) and tail start "
+                  f"{tail_start} equal the fixpoint's")
+        stitch_shapes[name] = calls
         foreign[name] = (dt, words, n_segs, seg_bits, max_syms, entries, len(enc))
 
     # stream_decode at 4 KiB: each stop rule.
@@ -811,8 +928,10 @@ def main() -> int:
             raise AssertionError(f"stream_decode {label}: status {status}, {n_dec} symbols")
         print(f"phase 2 stream_decode {label}: max_abs_err {e} ({n_dec} symbols, "
               f"end bit {end_bit}, status {status})")
+    errs["selfsync_decode"] = max(errs["selfsync_decode"], *stitch_errs.values())
     if any(errs.values()):
-        raise AssertionError(f"kernels differ from their plain versions: {errs}")
+        raise AssertionError(f"kernels differ from their plain versions: {errs}, stitch forms "
+                             f"{stitch_errs}")
 
     # ---- 3. golden vectors and the unknown-symbol error ------------------
     golden = _golden()
@@ -843,19 +962,36 @@ def main() -> int:
             raise AssertionError(f"unknown symbol at {exc.index}/{exc.symbol}") from exc
     else:
         raise AssertionError("unknown symbol did not raise")
+    fell_back = selfsync.outcomes["fixpoint"]
     try:
         tt.decode(bytes(MIB), static)  # zeros match no code of the static table
     except tt.UnknownSymbolError:
         pass
     else:
         raise AssertionError("decode of zeros did not raise")
+    if selfsync.outcomes["fixpoint"] != fell_back + 1:
+        raise AssertionError("decode of zeros did not raise from the fixpoint fallback")
     data1 = data8[:MIB]
     enc1 = tt.encode(data1, static)
     for k in (0, 1, 4097, 65536):
         if tt.decode(enc1, static, max_output=k) != data1[:k]:
             raise AssertionError(f"decode with max_output={k}")
-    print("phase 3: golden vectors, unknown-symbol index, decode of zeros raising, "
-          "max_output ok")
+    # a table built at root_bits 16 (the device LUT is built at 12): random
+    # bytes reach HPACK's 30-bit codes on every decode path
+    hpack16 = tt.HuffmanTable.from_specs(hpack.specs(), name="hpack16", root_bits=16)
+    enc16, idx16 = tt.encode_with_index(data1, hpack16)
+    dec16 = tt.HuffmanDecoder(hpack16)
+    fed16 = b"".join(dec16.decode_chunk(enc16[i:i + 256 * 1024]).data
+                     for i in range(0, len(enc16), 256 * 1024))
+    if enc16 != tt.encode(data1, hpack):
+        raise AssertionError("root_bits 16: encoded bytes differ from the root_bits 12 table's")
+    if not (tt.decode(enc16, hpack16) == tt.decode_indexed(enc16, idx16, hpack16) == fed16
+            == data1):
+        raise AssertionError("root_bits 16: a decode path differs from the input")
+    print("phase 3: golden vectors, unknown-symbol index, decode of zeros raising through "
+          "the fixpoint, max_output ok; HPACK at root_bits 16 (LUT built at "
+          f"{DeviceTable.for_table(hpack16, dev).root_bits}), 1 MiB random bytes, max code "
+          f"{idx16.max_code_len}: decode, decode_indexed and HuffmanDecoder give the input")
 
     # ---- 4. the two paths at full size ------------------------------------
     data64 = np.random.default_rng(SEED + 1).integers(
@@ -878,23 +1014,31 @@ def main() -> int:
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the indexed path never ran: {launches}")
 
-    # the foreign-stream path: decode of the same streams, with no index
-    _reset(selfsync.launches, stream_decode.launches)
+    # the foreign-stream path: decode of the same streams, with no index;
+    # each must take the stitch (2 launches, 3 with a repair)
+    _reset(selfsync.launches, stream_decode.launches, selfsync.outcomes)
     foreign_runs = []
     for name, table, data, enc, _idx, _dec, _secs in results:
-        before = selfsync.launches["selfsync_decode"]
+        before, ends = dict(selfsync.launches), dict(selfsync.outcomes)
         t0 = time.perf_counter()
         out = tt.decode(enc, table)
         secs = time.perf_counter() - t0
-        foreign_runs.append((name, out, secs, selfsync.launches["selfsync_decode"] - before))
+        ran = {k: v - before[k] for k, v in selfsync.launches.items()}
+        ends = {k: v - ends[k] for k, v in selfsync.outcomes.items()}
+        if ends["fixpoint"] or ran["selfsync_decode"] != 2 + ends["repaired"] or (
+                ran["selfsync_decode_repair"] != ends["repaired"]):
+            raise AssertionError(f"{name}: decode did not take the stitch: launches {ran}, "
+                                 f"outcomes {ends}")
+        foreign_runs.append((name, out, secs, ran, ends))
     foreign_launches = {"selfsync_decode": selfsync.launches["selfsync_decode"],
                         **stream_decode.launches}
-    print(f"phase 4 foreign-stream path launches: {foreign_launches}")
+    print(f"phase 4 foreign-stream path launches: {dict(selfsync.launches)}, "
+          f"{dict(stream_decode.launches)}; stitch outcomes {dict(selfsync.outcomes)}")
     if not all(foreign_launches.values()):
         raise AssertionError(f"a kernel of the foreign-stream path never ran: {foreign_launches}")
     launches.update(foreign_launches)
 
-    for (name, table, data, enc, idx, dec, secs), (_, out, f_secs, passes) in zip(
+    for (name, table, data, enc, idx, dec, secs), (_, out, f_secs, ran, ends) in zip(
             results, foreign_runs):
         if dec != data:
             raise AssertionError(f"{name}: round trip differs")
@@ -911,7 +1055,8 @@ def main() -> int:
             raise AssertionError(f"{name}: index arrays differ")
         print(f"phase 4 {name}: round trip ok, {len(data)} -> {len(enc)} bytes, "
               f"max code {idx.max_code_len}, {secs * 1e3:.1f} ms first call; "
-              f"decode ok, {passes} fixpoint passes, {f_secs * 1e3:.1f} ms first call")
+              f"decode ok through the stitch, selfsync_decode launches {ran}, "
+              f"{ends['segments_repaired']} segments repaired, {f_secs * 1e3:.1f} ms first call")
 
     # ---- 5. timings at 8 MiB ---------------------------------------------
     dt, chunk, offs, total, n_words, words, block_offs, nsyms, out_start = (
@@ -984,6 +1129,36 @@ def main() -> int:
         got = kernel_only.get(name)
         print(f"phase 5 {name}: kernel alone (torch.profiler) "
               + (f"{got:.4f} ms" if got is not None else "not measured"))
+    # the stitch's forms at the launches it made on the static 8 MiB stream:
+    # events (wrapper, fresh output buffers) beside the plain version,
+    # profiler (kernel alone), bound from this run's lanes and symbols
+    forms = {}
+    for form, (args, kw) in stitch_shapes["static"].items():
+        k_fn = lambda args=args, kw=kw: stitch_form(selfsync, args, kw)  # noqa: E731
+        p_fn = lambda args=args, kw=kw: stitch_form(selfsync, args, kw, plain=True)  # noqa: E731
+        p1, k1, k2, p2 = median_ms(p_fn), median_ms(k_fn), median_ms(k_fn), median_ms(p_fn)
+        alone = _profiled_kernel_ms(torch, {"selfsync_decode": k_fn}).get("selfsync_decode")
+        outs = k_fn()
+        bound_ms, bound_by = _bound(*stitch_form_work(form, args, kw, outs, seg_bits,
+                                                      selfsync.SEG_WORDS))
+        forms[form] = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "alone_ms": alone,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "max_abs_err": stitch_errs[form], "lanes": args[1].numel(),
+                       "symbols": int(outs[1].sum())}
+        print(f"phase 5 selfsync_decode stitch {form}: kernel {k1:.4f} / {k2:.4f} ms (alone "
+              + (f"{alone:.4f}" if alone is not None else "not measured")
+              + f"), plain {p1:.4f} / {p2:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
+              f"({forms[form]['lanes']} lanes, {forms[form]['symbols']} symbols)")
+    plan8 = (n_segs, seg_bits)
+    by_kernel = _device_ms_by_kernel(torch, lambda: selfsync.stitch(f_words, 0, plan8, f_dt))
+    in_kernel = sum(t for k, t in by_kernel.items() if "selfsync_decode_kernel" in k)
+    stitch_ms = median_ms(lambda: selfsync.stitch(f_words, 0, plan8, f_dt))
+    forms["stitch_torch_ops_device_ms"] = sum(by_kernel.values()) - in_kernel
+    print(f"phase 5 stitch of the static 8 MiB stream: {stitch_ms:.4f} ms by events; device "
+          f"{forms['stitch_torch_ops_device_ms']:.4f} ms in its torch ops and copies, "
+          f"{in_kernel:.4f} ms in selfsync_decode (torch.profiler)")
+    for key, t in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:16]:
+        print(f"  {t:.4f} ms  {key[:100]}")
     sym_dev_ms = median_ms(lambda: _encode_device(sym, dt, 0xFF, chunk))
     print(f"phase 5 device-resident encode (count+cumsum+sync+pack): "
           f"{sym_dev_ms:.4f} ms ({gbs(sym_dev_ms):.2f} GB/s)")
@@ -1000,10 +1175,42 @@ def main() -> int:
           f"({gbs(dec_ms):.3f} GB/s), both {e2e_ms:.3f} ms ({gbs(e2e_ms):.3f} GB/s)")
     before = selfsync.launches["selfsync_decode"]
     foreign_ms = _median_wall_ms(torch, lambda: tt.decode(enc8, static))
-    passes = (selfsync.launches["selfsync_decode"] - before) / (REPS + 1)
+    per_call = (selfsync.launches["selfsync_decode"] - before) / (REPS + 1)
     print(f"phase 5 end to end from host bytes at 8 MiB: decode {foreign_ms:.3f} ms "
           f"({gbs(foreign_ms):.3f} GB/s of plaintext), beside decode_indexed "
-          f"{dec_ms:.3f} ms on the same stream; {passes:g} fixpoint passes per call")
+          f"{dec_ms:.3f} ms on the same stream; {per_call:g} selfsync_decode launches per call")
+    # host syncs of one decode: each synchronizing CUDA call warns in this
+    # mode; beside it, the same with nothing between the mode's switches,
+    # and the decode with the stitch left out (the fixpoint path)
+    def sync_sites(fn) -> list:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        return ["/".join(w.filename.split("/")[-2:]) + f":{w.lineno}" for w in caught
+                if "synchroniz" in str(w.message)]
+
+    real_stitch = selfsync.stitch
+    selfsync.stitch = lambda *args, **kw: None
+    try:
+        fixpoint_syncs = sync_sites(lambda: tt.decode(enc8, static))
+        fixpoint_ms = _median_wall_ms(torch, lambda: tt.decode(enc8, static))
+        fixpoint_busy = sum(_device_ms_by_kernel(torch, lambda: tt.decode(enc8, static)).values())
+    finally:
+        selfsync.stitch = real_stitch
+    stitch_ms2 = _median_wall_ms(torch, lambda: tt.decode(enc8, static))
+    print(f"phase 5 decode at 8 MiB with the stitch left out (the fixpoint path), in turns: "
+          f"stitch {foreign_ms:.3f}, fixpoint {fixpoint_ms:.3f} ms (device busy "
+          f"{fixpoint_busy:.4f}), stitch {stitch_ms2:.3f} ms wall")
+    idle_syncs, syncs = sync_sites(lambda: None), sync_sites(lambda: tt.decode(enc8, static))
+    forms["host_syncs_per_decode"] = len(syncs) - len(idle_syncs)
+    print(f"phase 5 host syncs of one 8 MiB decode (torch.cuda.set_sync_debug_mode): "
+          f"{len(syncs)} ({', '.join(syncs)}), of which {len(idle_syncs)} with no call between "
+          f"the mode's switches ({', '.join(idle_syncs)}); with the stitch left out (the "
+          f"fixpoint): {len(fixpoint_syncs)} ({', '.join(fixpoint_syncs)})")
     for label, fn, wall in (("round trip", round_trip, e2e_ms),
                             ("decode", lambda: tt.decode(enc8, static), foreign_ms)):
         by_kernel = _device_ms_by_kernel(torch, fn)
@@ -1077,8 +1284,10 @@ def main() -> int:
         {"name": "selfsync_decode", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/selfsync_decode.cu",
          "replaces": "tpu_huffman/ops/selfsync.py:51",
-         "also_replaces": "tpu_huffman/ops/selfsync.py:51 (emit_offs)",
-         "starts": starts_ms},
+         "also_replaces": "tpu_huffman/ops/selfsync.py:51 (emit_offs=True: starts and "
+                          "blast, the full pass at :900-906; the patch at :902; the repair "
+                          "at :1060)",
+         "starts": starts_ms, "stitch_forms": forms},
         {"name": "stream_decode", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/stream_decode.cu",
          "replaces": "tpu_huffman/ops/decode.py:107"},

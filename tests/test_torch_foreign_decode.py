@@ -31,6 +31,7 @@ from golden import (  # noqa: E402
 )
 from tpu_huffman import oracle  # noqa: E402
 from tpu_huffman.ops.bitpack import words_from_bytes_np  # noqa: E402
+from tpu_huffman_torch import stream as tstream  # noqa: E402
 from tpu_huffman_torch.ops import selfsync, stream_decode  # noqa: E402
 from tpu_huffman_torch.ops.bitpack import stage_words  # noqa: E402
 from tpu_huffman_torch.ops.encode import DeviceTable  # noqa: E402
@@ -240,3 +241,44 @@ def test_cuda_without_gpu_raises(monkeypatch, tables):
         with pytest.raises(RuntimeError, match="cuda"):
             tt.decode(enc, t, **kw)
     assert (dict(selfsync.launches), dict(stream_decode.launches)) == before
+
+
+def _root16(build):
+    """The HPACK table with a 16-bit root LUT, from its specs or from the
+    JAX package's table; and the JAX package's table at the same width."""
+    ref = th.HuffmanTable.from_specs(th.load_hpack_table().specs(), name="hpack16",
+                                     root_bits=16)
+    if build == "from_specs":
+        t = tt.HuffmanTable.from_specs(tt.load_hpack_table().specs(), name="hpack16",
+                                       root_bits=16)
+    else:
+        t = tt.from_reference(ref)
+    return ref, t
+
+
+@pytest.mark.parametrize("build", ["from_specs", "from_reference"])
+@pytest.mark.parametrize("path", ["decode", "decode_indexed", "decoder"])
+def test_root_bits_16(monkeypatch, build, path):
+    """A table built at root_bits 16 (fault C1): the device LUT is built at
+    12, and random bytes, which reach HPACK's 30-bit codes, decode through
+    every path equal to the JAX package and the oracle."""
+    ref, t = _root16(build)
+    assert (ref.root_bits, t.root_bits) == (16, 16)
+    assert DeviceTable.for_table(t, torch.device(CPU)).root_bits == 12
+    data = _random(1500, 16)
+    enc = th.encode(data, ref)
+    assert len(enc) > 2048 and int(t.lengths[np.frombuffer(data, np.uint8)].max()) == 30
+    assert enc == oracle.oracle_encode(data, ref) == tt.encode(data, t, device=CPU)
+    if path == "decode":
+        got = tt.decode(enc, t, device=CPU)
+        assert got == th.decode(enc, ref)
+    elif path == "decode_indexed":
+        enc_i, idx = tt.encode_with_index(data, t, block_symbols=256, device=CPU)
+        assert enc_i == enc
+        got = tt.decode_indexed(enc_i, idx, t, device=CPU)
+    else:
+        monkeypatch.setattr(tstream, "BULK_DECODE_THRESHOLD", 64)
+        dec = tt.HuffmanDecoder(t, device=CPU)
+        got = dec.decode_chunk(enc[:1000]).data + dec.decode_chunk(enc[1000:]).data
+        assert got == th.HuffmanDecoder(ref).decode_chunk(enc).data
+    assert got == data == oracle.oracle_decode(enc, ref)

@@ -164,19 +164,20 @@ def test_fixpoint_finds_codeword_boundaries(kind, seg_words):
 
 
 def test_unconverged_fixpoint_raises(tables, monkeypatch):
-    """Entries that keep changing raise after S + 1 passes; there is no
-    other path to fall back to."""
+    """With the stitch unresolved, entries that keep changing raise after
+    S + 1 fixpoint passes; there is no other path to fall back to."""
     _ref, t = tables
     enc = tt.encode(_random(1500, 4), t, device="cpu")
     real = selfsync.decode_segments
     calls = []
 
-    def wobbling(words, entries, seg_bits, max_syms, dt, starts=None):
-        syms, counts, exits, bad = real(words, entries, seg_bits, max_syms, dt, starts)
+    def wobbling(words, entries, seg_bits, max_syms, dt, **kw):
+        syms, counts, exits, bad = real(words, entries, seg_bits, max_syms, dt, **kw)
         calls.append(1)
         return syms, counts, exits + len(calls) % 2, bad
 
     monkeypatch.setattr(selfsync, "decode_segments", wobbling)
+    monkeypatch.setattr(selfsync, "stitch", lambda *a, **k: None)
     n_segs, _ = selfsync._plan_segments(8 * len(enc), 4)
     with pytest.raises(RuntimeError, match="converge"):
         selfsync.selfsync_decode_ex(enc, t, seg_words=4, device=CPU)

@@ -134,9 +134,9 @@ def test_decoder_capped_words_drain(tables, monkeypatch, cap):
     with_starts = []
     real = selfsync.decode_segments
 
-    def spy(words, entries, seg_bits, max_syms, dt, starts=None):
-        with_starts.append(starts is not None)
-        return real(words, entries, seg_bits, max_syms, dt, starts=starts)
+    def spy(words, entries, seg_bits, max_syms, dt, **kw):
+        with_starts.append(kw.get("starts") is not None)
+        return real(words, entries, seg_bits, max_syms, dt, **kw)
 
     monkeypatch.setattr(selfsync, "decode_segments", spy)
     data = _random(2500, 9)

@@ -50,12 +50,12 @@ SIGNATURES = {
     "thc_chain_decode": (
         _I32, _P, _I64, _P, _P, _P, _I64, _P, _I32, _P, _I64, _P, _P, _P, _P,
     ),
-    # device, words, n_words, entries, n_segs, seg_bits, max_syms, l0,
-    # root_bits, l1, l1_size, syms, starts (or null), counts, exits, bad,
-    # stream
+    # device, words, n_words, entries, seg_ids (or null), n_lanes, seg_bits,
+    # max_syms, max_codes, l0, root_bits, l1, l1_size, syms, starts (or
+    # null), counts, exits, bad, blast (or null), stream
     "thc_selfsync_decode": (
-        _I32, _P, _I64, _P, _I64, _I32, _I32, _P, _I32, _P, _I64, _P, _P, _P,
-        _P, _P, _P,
+        _I32, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P, _I32, _P, _I64, _P,
+        _P, _P, _P, _P, _P, _P,
     ),
     # device, words, n_words, start_bit, total_bits, out_capacity, l0,
     # root_bits, l1, l1_size, out, info, stream

@@ -5,8 +5,9 @@ kernels B2 ``_make_pallas_call_dual`` and B3 ``_make_pallas_call`` of
 
 One kernel, in ``csrc/chain_decode.cu``, decodes every index block as one
 chain on one thread, from the block's int64 entry bit, for any prefix-free
-table whose level-0 LUT fits shared memory (``root_bits`` <= 12, the
-default) and any block size. The TPU's dual-chain pairing, row staging and window plans
+table and any block size: ``DeviceTable`` builds the LUT at ``root_bits``
+<= ``MAX_ROOT_BITS``, so level 0 fits shared memory whatever width the
+table was built at. The TPU's dual-chain pairing, row staging and window plans
 (``pair_dual_inputs``, ``plan_wb``, ``capped_intervals``) only shape VMEM
 tiles and have no counterpart here.
 
@@ -22,7 +23,7 @@ import torch
 from .. import _build
 from .bitpack import extract_windows, u32
 
-MAX_ROOT_BITS = 12  # level 0 must fit the kernel's shared memory
+MAX_ROOT_BITS = 12  # the decode LUT's level-0 width: it fits the kernels' shared memory
 launches = {"chain_decode": 0}
 
 
@@ -75,8 +76,6 @@ def decode_chains(words: torch.Tensor, bit_offs: torch.Tensor,
         return decode_chains_plain(words, bit_offs, n_syms, out_start, n_out, dt)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if dt.root_bits > MAX_ROOT_BITS:
-        raise ValueError(f"root_bits {dt.root_bits} > {MAX_ROOT_BITS}")
     b = bit_offs.numel()
     out = torch.empty(n_out, dtype=torch.uint8, device=dev)
     end_bits = torch.empty(b, dtype=torch.int64, device=dev)

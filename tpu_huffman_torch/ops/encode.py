@@ -15,9 +15,10 @@ import numpy as np
 import torch
 
 from ..errors import UnknownSymbolError
-from ..tables import HuffmanTable
+from ..tables import HuffmanTable, _build_decode_lut
 from . import pack_encode
 from .bitpack import words_to_bytes
+from .chain_decode import MAX_ROOT_BITS
 
 DEFAULT_EOS_PADDING = 0xFF
 # One index block per 256 symbols: the granularity the TPU path picks for
@@ -58,26 +59,28 @@ class DeviceTable:
     """A table's arrays staged on one device, cached per (table, device).
 
     Encode: ``patterns`` (uint32 bits in int32) and ``lengths`` (int32).
-    Decode, for the kernel: ``l0``/``l1``, each entry packed into one int32
-    (see csrc/chain_decode.cu); for the plain version: ``l0_bits``,
-    ``l0_val``, ``l1_bits``, ``l1_val`` in int64.
+    Decode: a LUT of its own, built at ``root_bits`` = min(the table's,
+    ``MAX_ROOT_BITS``) so that level 0 fits the kernels' shared memory.
+    ``root_bits`` is a layout: the decoded symbols are the same at any
+    width. For the kernel: ``l0``/``l1``, each entry packed into one int32
+    (see csrc/lut.cuh); for the plain version: ``l0_bits``, ``l0_val``,
+    ``l1_bits``, ``l1_val`` in int64.
     """
 
     _cache: dict = {}
 
     def __init__(self, table: HuffmanTable, dev: torch.device):
         self.table = table
-        self.root_bits = int(table.root_bits)
 
         def put(a, dtype):
             return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
 
         self.patterns = put(table.patterns.astype(np.uint32).view(np.int32), torch.int32)
         self.lengths = put(table.lengths, torch.int32)
-        l0_bits = table.l0_bits.astype(np.int64)
-        l0_val = table.l0_val.astype(np.int64)
-        l1_bits = table.l1_bits.astype(np.int64)
-        l1_val = table.l1_val.astype(np.int64)
+        *lut, self.root_bits = _build_decode_lut(
+            table.lengths, table.patterns, min(int(table.root_bits), MAX_ROOT_BITS)
+        )
+        l0_bits, l0_val, l1_bits, l1_val = (a.astype(np.int64) for a in lut)
         if l1_bits.size >= 1 << 23:
             raise ValueError("level-1 LUT too large for the packed entry form")
         self.l0 = put((l0_val << 8) | (l0_bits & 0xFF), torch.int32)

@@ -1,18 +1,49 @@
 """Self-synchronising parallel decode of foreign (un-indexed) streams (ports
-``tpu_huffman/ops/selfsync.py``: the Pallas kernel B4 ``_make_selfsync_call``
-with its fixpoint loop ``_selfsync_passes``, ``_plan_segments`` and
-``selfsync_decode``/``selfsync_decode_ex``).
+``tpu_huffman/ops/selfsync.py``: the Pallas kernel B4 ``_make_selfsync_call``;
+the one-pass + patch stitch with its device merge, repair and assembly,
+``_segments_pipeline_fast``, ``_dense_core``, ``_dense_assemble`` and the
+capped cut of ``_segments_pipeline_dense_capped``; the fixpoint fallback
+``_selfsync_passes``; ``_plan_segments``; ``selfsync_decode``,
+``selfsync_decode_ex`` and the words drains).
 
 A stream written by another encoder (the reference C library, an HPACK
 peer) carries no block index, so the serial bit-offset chain is broken
-another way. The stream is cut into segments of ``seg_words * 32`` bits.
-Every pass decodes all segments at once from an entry-bit estimate
-(:func:`decode_segments`, one thread per segment in
-``csrc/selfsync_decode.cu``), and segment s's exit becomes segment s+1's
-entry. Segment 0's entry is ``start_bit``, so pass k makes segment k exact,
-and prefix codes resynchronise after a few symbols, so the entries usually
-stop changing after two or three passes. Each pass costs one host sync (the
-convergence test); the compaction and the tail cost one each more.
+another way. The stream is cut into segments of ``seg_words * 32`` bits,
+each decoded by one thread from an entry bit (:func:`decode_segments`,
+``csrc/selfsync_decode.cu``). Prefix codes resynchronise: a chain started
+at a wrong bit joins the true codeword boundaries after a few symbols.
+
+Every drain tries the stitch first (:func:`stitch`):
+
+1. a full pass from segment-aligned entries (``start_bit`` for segment 0)
+   that also writes each symbol's start bit and each segment's last
+   invalid window (``starts``, ``blast``);
+2. its exits, shifted by one segment, are the true entries of every
+   segment whose predecessor's chain has joined by its end;
+3. a patch pass of at most ``PATCH_SYMS`` codes from the true entries;
+4. per segment, the first patch boundary that is also a full-pass
+   boundary: from there on the full pass's chain is the true one, if no
+   invalid window of it lies past that point. A segment whose patch
+   reaches its end and exits where the full pass does resolves too;
+5. up to max(``R_MAX``, S / 32) unresolved segments of S are re-decoded
+   whole from their true entries in one launch (``seg_ids``); a repair
+   stands when it meets no invalid window and its exit equals the full
+   pass's;
+6. the body is each segment's patch head and full-pass tail (or its
+   repaired row), in one gather on the device, cut at ``capacity`` for the
+   capped drain.
+
+A clean stream costs two launches and one host read; a repair adds a
+launch and a read. Every segment resolved proves the whole chain: segment
+s's entry is true once segment s-1 is resolved. When a segment stays
+unresolved (an invalid window on a true chain, as in a corrupt stream;
+more failures than one repair takes; a repaired exit that differs), the drain
+falls back to the fixpoint (:func:`_fixpoint`): full passes, each feeding
+segment s's exit back as segment s+1's entry, until the entries stop
+changing; pass k makes segment k exact, and each pass costs a host sync.
+The fixpoint owns the error semantics: every UnknownSymbolError of this
+module is raised there. ``outcomes`` counts the drains that were stitched,
+repaired and fell back, and the segments the repairs re-decoded.
 
 The kernel segments leave out the stream's last partial segment and one
 guard segment, so every codeword they decode has more than 32 bits after it:
@@ -25,19 +56,22 @@ The streaming decoder (``stream.py``) drains a retained word buffer
 in place: :func:`selfsync_decode_words` decodes all of it, and
 :func:`selfsync_decode_capped_words` at most ``capacity`` symbols from a
 prefix of ``sb + (capacity + 1) * max_len + 64`` bits, so a call costs
-O(capacity), not O(remainder). The capped drain asks the kernel for each
-symbol's start bit (``starts``, the TPU kernel's ``emit_offs`` form) to cut
-inside the body and to count the symbols before an invalid window.
+O(capacity), not O(remainder). The stitch cuts the body at the start bit
+of symbol number ``capacity``, from the kernel's ``starts``.
 
-Not ported: the TPU's lane bucketing of the grid, the one-pass + patch
-stitch, the dense device stitch and repair, and the fused one-dispatch
-drain (``_segments_pipeline_fast``, ``_stitch_fast``, ``_dense_core``,
-``_dense_repair``, ``fused_drain_words``); see ROADMAP.md.
+Not ported, because they only shape static XLA programs on the TPU: the
+lane bucketing of the grid and of the download (``S_dl``), the slot-grid
+rate hints (``_dl_bucket``, ``_learn_dl_rate``, ``n_dl``, ``dl_over``),
+``_REPAIR_IN_INTERPRET``, the u16-pair packing of the offsets and the
+split between the host stitch and the dense one (the port stitches on the
+device for every table). The fused one-dispatch drain
+(``fused_drain_words``) is not ported either; see ROADMAP.md.
 
 :func:`decode_segments` runs the plain version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; there is no fallback from
-one to the other. ``launches`` counts the kernel launches (one per pass)
-and, under a key of its own, those that wrote ``starts``.
+one to the other. ``launches`` counts the kernel launches, and under keys
+of their own those that wrote ``starts``, those that wrote ``blast``, the
+patch launches (a code cap) and the repair launches (segment ids).
 """
 
 from __future__ import annotations
@@ -49,20 +83,32 @@ from ..errors import UnknownSymbolError
 from ..tables import MAX_CODE_BITS, HuffmanTable
 from . import stream_decode
 from .bitpack import extract_windows, stage_words, u32
-from .chain_decode import MAX_ROOT_BITS, lut_lookup
+from .chain_decode import lut_lookup
 from .encode import DeviceTable, resolve_device, stage_bytes
 
 SEG_WORDS = 32  # 1024 bits per segment
 SEG_BITS = SEG_WORDS * 32
 MAX_STARTS_SEG_BITS = 32767  # starts are int16
-# kernel launches; "selfsync_decode_starts" counts those that also wrote starts
-launches = {"selfsync_decode": 0, "selfsync_decode_starts": 0}
+NO_START = MAX_STARTS_SEG_BITS  # a starts slot with no symbol: past any segment's end
+# Patch-pass codes per segment (the JAX package's PATCH_SYMS): the merge
+# must fall within them, or the segment goes to the repair.
+PATCH_SYMS = 32
+# Unresolved segments one repair launch takes: R_MAX, or S / 32 of S
+# segments where that is more. The JAX package repairs up to R_MAX = 256 in
+# its device stitch and, past that, up to max(64, S >> 5) in its host one
+# (``_stitch_fast``); the port has one stitch, with the larger of the two.
+# More failures fall back to the fixpoint.
+R_MAX = 256
+launches = {"selfsync_decode": 0, "selfsync_decode_starts": 0, "selfsync_decode_blast": 0,
+            "selfsync_decode_patch": 0, "selfsync_decode_repair": 0}
+# drains of kernel segments by how they ended, and the segments repaired
+outcomes = {"stitched": 0, "repaired": 0, "fixpoint": 0, "segments_repaired": 0}
 
 
 def supports(table: HuffmanTable) -> bool:
-    """Any prefix-free table whose level-0 LUT fits the kernels' shared
-    memory (``root_bits`` <= 12, the default)."""
-    return 0 < table.max_len <= MAX_CODE_BITS and table.root_bits <= MAX_ROOT_BITS
+    """Any prefix-free table: ``DeviceTable`` builds the kernels' LUT at a
+    level-0 width that fits shared memory."""
+    return 0 < table.max_len <= MAX_CODE_BITS
 
 
 def max_symbols(table: HuffmanTable, seg_bits: int) -> int:
@@ -100,77 +146,115 @@ def _check_starts(starts: torch.Tensor, shape: tuple, seg_bits: int, dev) -> Non
         raise ValueError(f"starts must be a contiguous int16 tensor of shape {shape} on {dev}")
 
 
+def _check_lanes(name: str, t: torch.Tensor, n: int, dev) -> None:
+    if (t.dtype != torch.int32 or tuple(t.shape) != (n,) or not t.is_contiguous()
+            or t.device != dev):
+        raise ValueError(f"{name} must be a contiguous int32 tensor of shape ({n},) on {dev}")
+
+
 def decode_segments(words: torch.Tensor, entries: torch.Tensor, seg_bits: int,
-                    max_syms: int, dt, starts: torch.Tensor | None = None):
-    """One pass: decode segment s from bit ``s * seg_bits + entries[s]``
-    (``entries`` >= 0) until the first codeword start at or past its end.
+                    max_syms: int, dt, starts: torch.Tensor | None = None,
+                    blast: torch.Tensor | None = None, max_codes: int = 0,
+                    seg_ids: torch.Tensor | None = None):
+    """One pass: lane t decodes segment s = t (or ``seg_ids[t]``) from bit
+    ``s * seg_bits + entries[t]`` (``entries`` >= 0) until the first
+    codeword start at or past the segment's end, or, with ``max_codes`` >
+    0, once it has emitted that many codes.
 
-    Returns (syms uint8[S, max_syms], counts, exits, bad), each of the last
-    three int32[S]: the symbols of each segment in its row (zeros past its
-    count), the exit bit relative to the segment (>= seg_bits), and 0 or
-    1 + the segment-relative bit of the first window no code matched. Such a
-    window advances 1 bit and takes no slot.
+    Returns (syms uint8[T, max_syms], counts, exits, bad), each of the last
+    three int32[T]: the symbols of each lane in its row (zeros past its
+    count), the exit bit relative to the segment (where the lane stopped),
+    and 0 or 1 + the segment-relative bit of the first window no code
+    matched. Such a window advances 1 bit and takes no slot.
 
-    ``starts``, when given, is an int16 [S, max_syms] tensor that the call
+    ``starts``, when given, is an int16 [T, max_syms] tensor that the call
     fills with each emitted symbol's segment-relative start bit, in the
-    symbol's slot; slots past a segment's count are left as they were.
+    symbol's slot; slots past a lane's count are left as they were.
+    ``blast``, when given, is an int32 [T] tensor that the call fills with 0
+    or 1 + the segment-relative bit of the last invalid window. A negative
+    ``seg_ids`` entry is a dead lane: its syms, counts, exits and bad are 0
+    and its starts and blast are left as they were.
     """
     _check(words, entries, dt)
     dev = words.device
-    s = entries.numel()
+    t = entries.numel()
     if starts is not None:
-        _check_starts(starts, (s, max_syms), seg_bits, dev)
+        _check_starts(starts, (t, max_syms), seg_bits, dev)
+    if blast is not None:
+        _check_lanes("blast", blast, t, dev)
+    if seg_ids is not None:
+        _check_lanes("seg_ids", seg_ids, t, dev)
+    if not 0 <= max_codes <= max_syms:
+        raise ValueError(f"max_codes must be in [0, max_syms={max_syms}], got {max_codes}")
     if dev.type == "cpu":
-        return decode_segments_plain(words, entries, seg_bits, max_syms, dt, starts)
+        return decode_segments_plain(words, entries, seg_bits, max_syms, dt, starts, blast,
+                                     max_codes, seg_ids)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if dt.root_bits > MAX_ROOT_BITS:
-        raise ValueError(f"root_bits {dt.root_bits} > {MAX_ROOT_BITS}")
-    syms = torch.zeros((s, max_syms), dtype=torch.uint8, device=dev)
-    counts, exits, bad = (torch.empty(s, dtype=torch.int32, device=dev) for _ in range(3))
+    syms = torch.zeros((t, max_syms), dtype=torch.uint8, device=dev)
+    new = torch.empty if seg_ids is None else torch.zeros  # dead lanes write nothing
+    counts, exits, bad = (new(t, dtype=torch.int32, device=dev) for _ in range(3))
     words, entries = words.contiguous(), entries.contiguous()
     stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def ptr(x):
+        return None if x is None else x.data_ptr()
+
     err = _build.load().thc_selfsync_decode(
-        dev.index, words.data_ptr(), words.numel(), entries.data_ptr(), s,
-        seg_bits, max_syms, dt.l0.data_ptr(), dt.root_bits, dt.l1.data_ptr(),
-        dt.l1.numel(), syms.data_ptr(), None if starts is None else starts.data_ptr(),
-        counts.data_ptr(), exits.data_ptr(), bad.data_ptr(), stream,
+        dev.index, words.data_ptr(), words.numel(), entries.data_ptr(), ptr(seg_ids), t,
+        seg_bits, max_syms, max_codes, dt.l0.data_ptr(), dt.root_bits, dt.l1.data_ptr(),
+        dt.l1.numel(), syms.data_ptr(), ptr(starts), counts.data_ptr(), exits.data_ptr(),
+        bad.data_ptr(), ptr(blast), stream,
     )
     _build.check("thc_selfsync_decode", err)
     launches["selfsync_decode"] += 1
     launches["selfsync_decode_starts"] += starts is not None
+    launches["selfsync_decode_blast"] += blast is not None
+    launches["selfsync_decode_patch"] += max_codes > 0
+    launches["selfsync_decode_repair"] += seg_ids is not None
     return syms, counts, exits, bad
 
 
 def decode_segments_plain(words: torch.Tensor, entries: torch.Tensor,
                           seg_bits: int, max_syms: int, dt,
-                          starts: torch.Tensor | None = None):
-    """Plain version of :func:`decode_segments`: every segment steps at
-    once, in int64, until all have passed their end."""
+                          starts: torch.Tensor | None = None,
+                          blast: torch.Tensor | None = None, max_codes: int = 0,
+                          seg_ids: torch.Tensor | None = None):
+    """Plain version of :func:`decode_segments`: every lane steps at once,
+    in int64, until all have stopped."""
     dev = words.device
     w64 = u32(words)
-    s = entries.numel()
-    rows = torch.arange(s, device=dev)
-    seg_start = rows * seg_bits
+    t = entries.numel()
+    rows = torch.arange(t, device=dev)
+    seg = rows if seg_ids is None else seg_ids.to(torch.int64)
+    live = seg >= 0
+    seg_start = seg.clamp(min=0) * seg_bits
     rel = entries.to(torch.int64)
-    counts = torch.zeros(s, dtype=torch.int64, device=dev)
-    bad = torch.zeros(s, dtype=torch.int64, device=dev)
-    syms = torch.zeros((s, max_syms), dtype=torch.uint8, device=dev)
+    counts = torch.zeros(t, dtype=torch.int64, device=dev)
+    bad = torch.zeros(t, dtype=torch.int64, device=dev)
+    last_bad = torch.zeros(t, dtype=torch.int64, device=dev)
+    syms = torch.zeros((t, max_syms), dtype=torch.uint8, device=dev)
     while True:
-        active = rel < seg_bits
+        active = live & (rel < seg_bits)
+        if max_codes:
+            active &= counts < max_codes
         if not bool(active.any()):
             break
         sym, ln = lut_lookup(extract_windows(w64, seg_start + rel), dt)
         hit = active & (ln > 0)
         miss = active & (ln == 0)
         bad = torch.where(miss & (bad == 0), rel + 1, bad)
+        last_bad = torch.where(miss, rel + 1, last_bad)
         put = hit & (counts < max_syms)
         syms[rows[put], counts[put]] = sym[put].to(torch.uint8)
         if starts is not None:
             starts[rows[put], counts[put]] = rel[put].to(torch.int16)
         counts += hit
         rel += torch.where(miss, 1, torch.where(active, ln, 0))
-    return syms, counts.to(torch.int32), rel.to(torch.int32), bad.to(torch.int32)
+    if blast is not None:
+        blast.copy_(torch.where(live, last_bad, blast.to(torch.int64)))
+    exits = torch.where(live, rel, 0)
+    return syms, counts.to(torch.int32), exits.to(torch.int32), bad.to(torch.int32)
 
 
 def _fixpoint(words: torch.Tensor, n_segs: int, seg_bits: int, start_bit: int,
@@ -184,7 +268,7 @@ def _fixpoint(words: torch.Tensor, n_segs: int, seg_bits: int, start_bit: int,
     passes; raises RuntimeError if they have not after ``n_segs + 1``.
     """
     entries = torch.zeros(n_segs, dtype=torch.int32, device=words.device)
-    entries[0] = start_bit
+    entries[:1].fill_(start_bit)
     for passes in range(1, n_segs + 2):
         if starts is not None:
             starts.zero_()
@@ -201,6 +285,187 @@ def _body(syms: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
     """The segments' symbols, concatenated: row s up to counts[s]."""
     cols = torch.arange(syms.shape[1], device=syms.device)
     return syms.reshape(-1)[(cols[None, :] < counts[:, None]).reshape(-1)]
+
+
+def _assemble(head: torch.Tensor, tail: torch.Tensor, i_eff: torch.Tensor,
+              j_s: torch.Tensor, counts: torch.Tensor, n_out: int) -> torch.Tensor:
+    """The first ``n_out`` symbols of the stitched chains: per segment s,
+    ``head[s, :i_eff[s]]`` then ``tail[s, j_s[s]:]`` up to ``counts[s]``
+    symbols in all. One masked gather over the two row sets side by side;
+    the mask's count is known, so ``nonzero_static`` needs no sync."""
+    dev = head.device
+    cols_a = torch.arange(head.shape[1], device=dev)
+    cols = torch.arange(tail.shape[1], device=dev)
+    tail_end = j_s + counts - i_eff
+    keep = torch.cat([cols_a < i_eff[:, None],
+                      (cols >= j_s[:, None]) & (cols < tail_end[:, None])], 1)
+    idx = torch.nonzero_static(keep.reshape(-1), size=n_out)[:, 0]
+    return torch.cat([head, tail], 1).reshape(-1)[idx]
+
+
+def stitch(words: torch.Tensor, start_bit: int, plan: tuple, dt,
+           capacity: int | None = None):
+    """The one-pass + patch stitch over the plan's segments, on the words'
+    device (see the module's docstring).
+
+    Returns None when a segment stays unresolved, else (body, tail_start,
+    total, cut): the first min(total, capacity) symbols of the segments'
+    true chains (uint8, on the device), the bit where the sequential tail
+    starts, the segments' symbol count, and the start bit of symbol number
+    ``capacity`` when ``capacity`` < total (else None). Raises nothing for
+    the stream's content: a true chain with an invalid window never
+    resolves.
+    """
+    n_segs, seg_bits = plan
+    if seg_bits > MAX_STARTS_SEG_BITS:
+        return None  # no int16 starts to merge at
+    dev = words.device
+    a = PATCH_SYMS
+    max_syms = max_symbols(dt.table, seg_bits)
+
+    # 1. the full pass, from segment-aligned entries
+    entries0 = torch.zeros(n_segs, dtype=torch.int32, device=dev)
+    entries0[:1].fill_(start_bit)  # a fill kernel: no host-to-device copy
+    starts0 = torch.full((n_segs, max_syms), NO_START, dtype=torch.int16, device=dev)
+    blast0 = torch.empty(n_segs, dtype=torch.int32, device=dev)
+    syms0, count0, exits0, _bad0 = decode_segments(words, entries0, seg_bits, max_syms, dt,
+                                                   starts=starts0, blast=blast0)
+    # 2. the true entries, and 3. the patch from them
+    entries1 = torch.cat([entries0[:1], exits0[:-1] - seg_bits])
+    starts_a = torch.full((n_segs, a), NO_START, dtype=torch.int16, device=dev)
+    syms_a, count_a, exits_a, bad_a = decode_segments(words, entries1, seg_bits, a, dt,
+                                                      starts=starts_a, max_codes=a)
+    count0, count_a, blast0 = count0.long(), count_a.long(), blast0.long()
+
+    # 4. merge: the first patch boundary that is also one of pass 0's
+    # (rows of starts0 ascend, NO_START past each count)
+    pos = torch.searchsorted(starts0, starts_a)
+    j = pos.clamp(max=max_syms - 1)
+    hit = ((starts0.gather(1, j) == starts_a) & (pos < count0[:, None])
+           & (torch.arange(a, device=dev) < count_a[:, None]))
+    any_hit = hit.any(1)
+    i_s = torch.where(any_hit, hit.to(torch.uint8).argmax(1), 0)
+    j_s = torch.where(any_hit, j.gather(1, i_s[:, None])[:, 0], 0)
+    merge_bit = torch.where(any_hit, starts_a.gather(1, i_s[:, None])[:, 0].long(), 0)
+    # _dense_core's resolution rule (tpu_huffman/ops/selfsync.py:1006-1011)
+    tail_clean = (blast0 == 0) | (blast0 - 1 < merge_bit)
+    use_tail = any_hit & tail_clean
+    reached_end = count_a < a
+    resolved = (bad_a == 0) & (use_tail | (reached_end & (exits_a == exits0)))
+    i_eff = torch.where(use_tail, i_s, count_a)
+    counts = i_eff + torch.where(use_tail, count0 - j_s, 0)
+    fail = ~resolved
+
+    def read(flag):
+        """One host read: (total, last exit, the cut's bit or 0, flag)."""
+        cum = torch.cumsum(counts, 0)
+        cut_bit = torch.zeros((), dtype=torch.int64, device=dev)
+        if capacity is not None:
+            # the segment holding symbol number `capacity` (0-based), its slot
+            s_c = (cum <= capacity).sum().clamp(max=n_segs - 1)
+            within = capacity - torch.where(s_c > 0, cum[(s_c - 1).clamp(min=0)], 0)
+            ie = i_eff[s_c]
+            bit = torch.where(within < ie, starts_a[s_c, within.clamp(0, a - 1)],
+                              starts0[s_c, (j_s[s_c] + within - ie).clamp(0, max_syms - 1)])
+            cut_bit = s_c * seg_bits + bit.long()
+        return torch.stack([cum[-1], exits0[-1].long(), cut_bit, flag.long()]).tolist()
+
+    total, last_exit, cut_bit, n_fail = read(fail.sum())
+    lanes = max(R_MAX, n_segs >> 5)
+    if n_fail > lanes:
+        return None
+    if n_fail:
+        # 5. repair: the failed segments' ids in lanes 0..n_fail-1 (a
+        # scatter by their rank among the failures), the rest dead
+        rank = torch.cumsum(fail, 0) - 1
+        lane = torch.where(fail, rank, lanes)  # slot `lanes` takes the rest, dropped
+        seg_ids = torch.full((lanes + 1,), -1, dtype=torch.int32, device=dev)
+        seg_ids.scatter_(0, lane, torch.arange(n_segs, dtype=torch.int32, device=dev))
+        seg_ids = seg_ids[:lanes]
+        ent_r = torch.where(seg_ids >= 0, entries1[seg_ids.clamp(min=0).long()], 0)
+        starts_r = torch.full((lanes, max_syms), NO_START, dtype=torch.int16, device=dev)
+        syms_r, count_r, exits_r, bad_r = decode_segments(
+            words, ent_r, seg_bits, max_syms, dt, starts=starts_r, seg_ids=seg_ids)
+        ids = seg_ids[:n_fail].long()
+        ok = ((bad_r[:n_fail] == 0) & (exits_r[:n_fail] == exits0[ids])).all()
+        # a repaired segment is its repaired row whole: no head, all tail
+        syms0[ids], starts0[ids] = syms_r[:n_fail], starts_r[:n_fail]
+        i_eff.index_fill_(0, ids, 0)
+        j_s.index_fill_(0, ids, 0)
+        counts[ids] = count_r[:n_fail].long()
+        total, last_exit, cut_bit, repair_ok = read(ok)
+        if not repair_ok:
+            return None
+    # 6. the body, cut at `capacity`
+    n_out = total if capacity is None else min(total, capacity)
+    body = _assemble(syms_a, syms0, i_eff, j_s, counts, n_out)
+    outcomes["repaired" if n_fail else "stitched"] += 1
+    outcomes["segments_repaired"] += n_fail
+    cut = cut_bit if capacity is not None and total > capacity else None
+    return body, n_segs * seg_bits + last_exit - seg_bits, total, cut
+
+
+def _fixpoint_body(words: torch.Tensor, start_bit: int, plan: tuple, dt,
+                   capacity: int | None = None):
+    """:func:`stitch`'s result by the fixpoint. Raises UnknownSymbolError
+    where the reference would: on any invalid window of the converged chain
+    or, with ``capacity``, on one reached within the first ``capacity``
+    symbols or right after them (the reference checks an unknown symbol
+    before a full output)."""
+    n_segs, seg_bits = plan
+    dev = words.device
+    max_syms = max_symbols(dt.table, seg_bits)
+    if capacity is None:
+        syms, counts, exits, bad, _entries, _passes = _fixpoint(
+            words, n_segs, seg_bits, start_bit, max_syms, dt)
+        any_bad, last_exit, total = torch.stack([
+            (bad != 0).any().to(torch.int64), exits[-1].to(torch.int64),
+            counts.sum(dtype=torch.int64),
+        ]).tolist()
+        if any_bad:
+            raise UnknownSymbolError()
+        return _body(syms, counts), n_segs * seg_bits + last_exit - seg_bits, total, None
+    starts = torch.zeros((n_segs, max_syms), dtype=torch.int16, device=dev)
+    syms, counts, exits, bad, _entries, _passes = _fixpoint(
+        words, n_segs, seg_bits, start_bit, max_syms, dt, starts=starts)
+    cum = torch.cumsum(counts, 0, dtype=torch.int64)
+    seg = torch.arange(n_segs, device=dev)
+    cols = torch.arange(max_syms, device=dev)
+
+    def before(s):  # symbols in the segments before s
+        return torch.where(s > 0, cum[(s - 1).clamp(min=0)], 0)
+
+    # the first invalid window on the converged chain, and the symbols
+    # before it, counted from the kernel's starts
+    is_bad = bad != 0
+    s_b = torch.where(is_bad, seg, n_segs).min().clamp(max=n_segs - 1)
+    before_bad = before(s_b) + (
+        (starts[s_b].to(torch.int64) < bad[s_b].to(torch.int64) - 1) & (cols < counts[s_b])
+    ).sum()
+    # the segment holding symbol number `capacity` (0-based), and its slot
+    s_c = (cum <= capacity).sum().clamp(max=n_segs - 1)
+    within = capacity - before(s_c)
+    cut_rel = starts[s_c, within.clamp(0, max_syms - 1)]
+    total, any_bad, before_bad, last_exit, s_c, cut_rel = torch.stack([
+        cum[-1], is_bad.any().to(torch.int64), before_bad, exits[-1].to(torch.int64),
+        s_c, cut_rel.to(torch.int64),
+    ]).tolist()
+    if any_bad and capacity >= before_bad:
+        raise UnknownSymbolError()
+    cut = s_c * seg_bits + cut_rel if total > capacity else None
+    return (_body(syms, counts)[:capacity], n_segs * seg_bits + last_exit - seg_bits, total,
+            cut)
+
+
+def _segments(words: torch.Tensor, start_bit: int, plan: tuple, dt,
+              capacity: int | None = None):
+    """The kernel segments' (body, tail_start, total, cut): the stitch, or
+    the fixpoint when it leaves a segment unresolved."""
+    got = stitch(words, start_bit, plan, dt, capacity)
+    if got is None:
+        outcomes["fixpoint"] += 1
+        got = _fixpoint_body(words, start_bit, plan, dt, capacity)
+    return got
 
 
 def decode_tail(words: torch.Tensor, from_bit: int, total_bits: int, budget: int | None, dt):
@@ -224,17 +489,7 @@ def _drain(words: torch.Tensor, start_bit: int, total_bits: int, dt,
     body = torch.zeros(0, dtype=torch.uint8, device=words.device)
     tail_start = start_bit
     if plan is not None:
-        n_segs, seg_bits = plan
-        syms, counts, exits, bad, _entries, _passes = _fixpoint(
-            words, n_segs, seg_bits, start_bit, max_symbols(dt.table, seg_bits), dt
-        )
-        any_bad, last_exit = torch.stack(
-            [(bad != 0).any().to(torch.int64), exits[-1].to(torch.int64)]
-        ).tolist()
-        if any_bad:
-            raise UnknownSymbolError()
-        body = _body(syms, counts)
-        tail_start = n_segs * seg_bits + last_exit - seg_bits
+        body, tail_start, _total, _cut = _segments(words, start_bit, plan, dt)
     tail, end_bit, _more = decode_tail(words, tail_start, total_bits, None, dt)
     return torch.cat([body, tail]), end_bit
 
@@ -263,43 +518,10 @@ def _drain_capped(words: torch.Tensor, start_bit: int, total_bits: int,
     plan = _plan_segments(prefix_bits, seg_words)
     if plan is None:
         return tail(start_bit, capacity)
-    n_segs, seg_bits = plan
-    max_syms = max_symbols(table, seg_bits)
-    starts = torch.zeros((n_segs, max_syms), dtype=torch.int16, device=words.device)
-    syms, counts, exits, bad, _entries, _passes = _fixpoint(
-        words, n_segs, seg_bits, start_bit, max_syms, dt, starts=starts
-    )
-    dev = words.device
-    cum = torch.cumsum(counts, 0, dtype=torch.int64)
-    seg = torch.arange(n_segs, device=dev)
-    cols = torch.arange(max_syms, device=dev)
-
-    def before(s):  # symbols in the segments before s
-        return torch.where(s > 0, cum[(s - 1).clamp(min=0)], 0)
-
-    # the first invalid window on the converged chain, and the symbols
-    # before it, counted from the kernel's starts
-    is_bad = bad != 0
-    s_b = torch.where(is_bad, seg, n_segs).min().clamp(max=n_segs - 1)
-    before_bad = before(s_b) + (
-        (starts[s_b].to(torch.int64) < bad[s_b].to(torch.int64) - 1) & (cols < counts[s_b])
-    ).sum()
-    # the segment holding symbol number `capacity` (0-based), and its slot
-    s_c = (cum <= capacity).sum().clamp(max=n_segs - 1)
-    within = capacity - before(s_c)
-    cut_rel = starts[s_c, within.clamp(0, max_syms - 1)]
-    total_body, any_bad, before_bad, last_exit, s_c, cut_rel = torch.stack([
-        cum[-1], is_bad.any().to(torch.int64), before_bad, exits[-1].to(torch.int64),
-        s_c, cut_rel.to(torch.int64),
-    ]).tolist()
-    if any_bad and capacity >= before_bad:
-        # the invalid window is reached within the cap or exactly at it: the
-        # reference checks an unknown symbol before a full output
-        raise UnknownSymbolError()
-    body = _body(syms, counts)
-    if total_body > capacity:
-        return body[:capacity], s_c * seg_bits + cut_rel, True
-    out, end_bit, more = tail(n_segs * seg_bits + last_exit - seg_bits, capacity - total_body)
+    body, tail_start, total, cut = _segments(words, start_bit, plan, dt, capacity)
+    if cut is not None:
+        return body, cut, True
+    out, end_bit, more = tail(tail_start, capacity - total)
     return torch.cat([body, out]), end_bit, more
 
 

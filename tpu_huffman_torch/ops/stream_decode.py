@@ -24,7 +24,7 @@ import torch
 
 from .. import _build
 from .bitpack import extract_windows, u32
-from .chain_decode import MAX_ROOT_BITS, lut_lookup
+from .chain_decode import lut_lookup
 
 STATUS_OK = 0
 STATUS_UNKNOWN_SYMBOL = 1
@@ -64,8 +64,6 @@ def decode_stream(words: torch.Tensor, start_bit: int, total_bits: int,
         return decode_stream_plain(words, start_bit, total_bits, out_capacity, dt)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    if dt.root_bits > MAX_ROOT_BITS:
-        raise ValueError(f"root_bits {dt.root_bits} > {MAX_ROOT_BITS}")
     m = out_size(dt, start_bit, total_bits, out_capacity)
     out = torch.zeros(m, dtype=torch.uint8, device=dev)
     info = torch.empty(3, dtype=torch.int64, device=dev)

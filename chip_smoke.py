@@ -11,15 +11,19 @@ Phases (any failure raises and the script exits non-zero):
   2. each kernel against its plain PyTorch version on the same CUDA tensors
      at main-path shapes, every output bit-identical:
      - count, pack, chain_decode: 8 MiB of random bytes (seed 2024) on the
-       static table at block_symbols 256 and 512, and on the HPACK table
-       (codes up to 30 bits) at 256;
+       static table at block_symbols 256, 512, 100 and 1000 (the last two
+       give chains whose output spans are not 16-byte aligned), and on the
+       HPACK table (codes up to 30 bits) at 256;
      - selfsync_decode: the stream of those 8 MiB on the static table, the
        same bytes taken as a stream (a foreign stream full of invalid
        windows), and the HPACK stream of them (30-bit codes, level-1 LUT in
        global memory), each on pass 0 (segment-aligned entries) and on the
        fixpoint's converged pass, and in the three forms the stitch launches
        (pass 0 with starts and blast, the patch with its code cap, a repair
-       with segment ids and dead lanes); the stitched body and tail start
+       with segment ids and dead lanes), on starts buffers filled with junk,
+       every live row 0 / NO_START past its count (the kernel writes whole
+       rows; a dead lane's syms row is left as allocated and zeroed on both
+       sides before the comparison); the stitched body and tail start
        equal the fixpoint's (the random-byte stream, whose true chain meets
        invalid windows, stays unresolved);
      - stream_decode at 4 KiB: no cap, a cap mid-stream (OUTPUT_FULL), and
@@ -42,7 +46,10 @@ Phases (any failure raises and the script exits non-zero):
   5. timings with CUDA events at 8 MiB: each kernel's wrapper beside its
      plain version (prof.median_ms: median of 11 samples of 5 calls after
      a warm-up), each kernel alone by torch.profiler, the stitch's three
-     forms with their bounds, the stitch's torch ops by torch.profiler, the
+     forms with their bounds, each redesigned decode form (chain_decode, the
+     full pass, the patch) beside the same loop with one store a symbol and
+     with none (prof.decode_ablate, prof.kernel_ms), the stitch's torch ops
+     by torch.profiler, the
      device time of one decode by kernel, the host syncs of one decode
      (torch.cuda.set_sync_debug_mode), and the public calls end to end from
      host bytes, in GB/s of plaintext;
@@ -73,7 +80,9 @@ Phases (any failure raises and the script exits non-zero):
      with the launch counters reset just before: every form of lut_chain
      (P1, P2, P3) and lut_wide (P6), lut_wide_mma and lut_chain_mma
      against lut_wide / lut_chain, every kind and form of step_chain (P4),
-     and every pack_ablate mode (P5; full against encode_pack's words),
+     every pack_ablate mode (P5; full against encode_pack's words), and
+     every decode_ablate mode and block size (the decode loops' stores
+     swapped: the question of scripts/prof/prof_decode_parts.py),
      each bit-identical to its plain version at the script's shape and
      seed and at every shape, round count and block size it is timed at;
      then timed where they fill the card, the dependent-step
@@ -289,23 +298,43 @@ def stitch_calls(torch, selfsync, words, n_segs: int, seg_bits: int, dt, seed: i
         entries1 = seen[1][0][1]
         ent = torch.where(seg_ids >= 0, entries1[seg_ids.clamp(min=0).long()], 0)
         max_syms = selfsync.max_symbols(dt.table, seg_bits)
-        starts = torch.full((len(ids), max_syms), selfsync.NO_START, dtype=torch.int16,
-                            device=words.device)
+        starts = torch.empty((len(ids), max_syms), dtype=torch.int16, device=words.device)
         calls["repair"] = ((words, ent, seg_bits, max_syms, dt),
                            {"starts": starts, "seg_ids": seg_ids})
     return calls, stitched
 
 
+JUNK = -5  # what a row or lane output holds before a call that must overwrite it
+
+
 def stitch_form(selfsync, args, kw, plain: bool = False):
     """A recorded selfsync_decode launch again, on fresh starts and blast
-    buffers (NO_START and 0, as the stitch gives them), by the kernel or
-    its plain version: its four outputs, then the starts and blast."""
+    buffers filled with JUNK (the stitch allocates them uninitialised: the
+    kernel writes every slot of a live lane), by the kernel or its plain
+    version: its four outputs, then the starts and blast."""
     kw = dict(kw)
-    for key, fill in (("starts", selfsync.NO_START), ("blast", 0)):
+    for key in ("starts", "blast"):
         if key in kw:
-            kw[key] = kw[key].new_full(kw[key].shape, fill)
+            kw[key] = kw[key].new_full(kw[key].shape, JUNK)
     fn = selfsync.decode_segments_plain if plain else selfsync.decode_segments
     return (*fn(*args, **kw), *(kw[k] for k in ("starts", "blast") if k in kw))
+
+
+def defined(torch, selfsync, outs, kw):
+    """A stitch form's outputs with each dead repair lane's syms row zeroed:
+    a dead lane writes nothing, so the kernel leaves that row as allocated.
+    Checks the row contract on the live lanes: 0 in syms and NO_START in
+    starts from each count to the end of the row."""
+    syms, counts = outs[0], outs[1]
+    live = kw["seg_ids"] >= 0 if "seg_ids" in kw else torch.ones_like(counts, dtype=torch.bool)
+    past = torch.arange(syms.shape[1], device=syms.device)[None, :] >= counts[:, None].long()
+    rows_ok = bool((syms[live] == 0).logical_or(~past[live]).all())
+    if "starts" in kw:
+        st = outs[4]
+        rows_ok &= bool((st[live] == selfsync.NO_START).logical_or(~past[live]).all())
+    if not rows_ok:
+        raise AssertionError("a live lane left slots past its count unwritten")
+    return (torch.where(live[:, None], syms, 0), *outs[1:])
 
 
 def stitch_form_work(form: str, args, kw, outs, seg_bits: int, seg_words: int) -> tuple:
@@ -590,6 +619,53 @@ def phase_hpack(torch, tt, table, counters, dev, n_strings: int = 1000) -> None:
           f"launches {launched}")
 
 
+def phase_store_design(torch, selfsync, chain_decode, chain_args, stitch_forms,
+                       alone: dict) -> dict:
+    """Each redesigned form (chain_decode; the stitch's full pass with starts
+    and blast, and its patch, at the launches the stitch made) beside the
+    same loop with one store a symbol (`byte`, the design it replaced) and
+    with no row stores (`none`), through prof.decode_ablate, all timed by
+    prof.kernel_ms in this run; the byte mode's row fills timed alone, and
+    the full pass without starts. Returns {label: ms}."""
+    import functools
+
+    from tpu_huffman_torch.prof import decode_ablate, kernel_ms
+
+    calls = {"chain_decode": functools.partial(chain_decode.decode_chains, *chain_args)}
+    for m in ("byte", "none"):
+        calls[f"chain_decode {m}"] = functools.partial(decode_ablate.chain_ablate, *chain_args, m)
+    for form in ("full", "patch"):
+        args, kw = stitch_forms[form]
+        calls[form] = functools.partial(selfsync.decode_segments, *args, **kw)
+        a_kw = {"starts": "starts" in kw, "blast": "blast" in kw,
+                "max_codes": kw.get("max_codes", 0)}
+        for m in ("byte", "none"):
+            calls[f"{form} {m}"] = functools.partial(decode_ablate.segments_ablate, *args, m,
+                                                     **a_kw)
+        rows = kw["starts"].shape
+        calls[f"{form} byte fill"] = functools.partial(
+            lambda rows, dev: (torch.zeros(rows, dtype=torch.uint8, device=dev),
+                               torch.full(rows, selfsync.NO_START, dtype=torch.int16,
+                                          device=dev)), rows, args[0].device)
+    args, kw = stitch_forms["full"]
+    calls["full without starts"] = functools.partial(selfsync.decode_segments, *args,
+                                                     blast=kw["blast"])
+    t = kernel_ms(calls)
+    for form in ("chain_decode", "full", "patch"):
+        fill = t.get(f"{form} byte fill", 0.0)
+        got = alone.get(form)
+        print(f"phase 5 store design, {form}: sector (the kernel) {t[form]:.4f} ms (alone by "
+              f"torch.profiler " + (f"{got:.4f}" if got is not None else "not measured")
+              + f"), byte {t[f'{form} byte']:.4f} ms"
+              + (f" ({t[f'{form} byte'] - fill:.4f} without its {fill:.4f} ms row fill)"
+                 if fill else "")
+              + f", none {t[f'{form} none']:.4f} ms (prof.kernel_ms, same run)")
+    bare = t["full without starts"]
+    print(f"phase 5 full pass with starts {t['full']:.4f} ms, without {bare:.4f} ms: "
+          f"{t['full'] / bare:.3f}x")
+    return t
+
+
 def phase_probes(torch, dev) -> list:
     """The probes' entry points (each module's run()) with the launch
     counters reset just before and read just after; the library
@@ -598,13 +674,14 @@ def phase_probes(torch, dev) -> list:
 
     from tpu_huffman_torch import prof
     from tpu_huffman_torch.ops.bitpack import u32
-    from tpu_huffman_torch.prof import latency, lut, mma_lut, pack_ablate
+    from tpu_huffman_torch.prof import decode_ablate, latency, lut, mma_lut, pack_ablate
 
-    counters = (lut.launches, mma_lut.launches, latency.launches, pack_ablate.launches)
+    counters = (lut.launches, mma_lut.launches, latency.launches, pack_ablate.launches,
+                decode_ablate.launches)
     _reset(*counters)
     t0 = time.perf_counter()
     res = {"lut": lut.run(dev), "mma": mma_lut.run(dev), "latency": latency.run(dev),
-           "pack": pack_ablate.run(dev)}
+           "pack": pack_ablate.run(dev), "decode": decode_ablate.run(dev)}
     secs = time.perf_counter() - t0
     launched = {k: v for c in counters for k, v in c.items()}
     print(f"phase 10 probes: every form bit-identical to its plain version at the scripts' "
@@ -640,6 +717,14 @@ def phase_probes(torch, dev) -> list:
           + f"; encode_pack {pk['pack_ms']:.4f} ms (full and encode_pack include the "
           f"{pk['fill_ms']:.4f} ms fill of the output words); plain full "
           f"{pk['modes']['full']['plain_ms']:.3f} ms")
+
+    dec = res["decode"]
+    for case, t in dec["cases"].items():
+        print(f"phase 10 decode_ablate {case} ({dec['lanes'][case]} lanes, "
+              f"{dec['symbols'][case]} symbols): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
+              + (f"; byte includes the {dec['fill_ms'][case]:.4f} ms fill of its rows"
+                 if case != "chain" else ""))
 
     # library yardsticks, timed here only: chained torch.take (P2's chain
     # at the fill shape), R torch.take of the packed wide entry, and the
@@ -736,6 +821,17 @@ def phase_probes(torch, dev) -> list:
          "work": (n_sym + 8 * pk["n_chunks"] + 4 * pk["n_words"] + 2048, n_sym),
          "modes_ms": {m: r["ms"] for m, r in pk["modes"].items()},
          "encode_pack_ms": pk["pack_ms"], "output_fill_ms": pk["fill_ms"]},
+        {"name": "decode_ablate", "route": "cuda",
+         "source": "tpu_huffman_torch/csrc/probe_decode.cu",
+         "replaces": "scripts/prof/prof_decode_parts.py:48",
+         "launches": launched["decode_ablate"],
+         "ms": dec["cases"]["chain"][f"sector {decode_ablate.BLOCK}"],
+         "plain_ms": dec["chain_plain_ms"], "library_ms": None,
+         "library": "none: no PyTorch call decodes variable-length codes",
+         "timed": f"chain case, sector mode (chain_decode's loop), {dec['symbols']['chain']} "
+                  f"symbols at block {decode_ablate.BLOCK}",
+         "work": (dec["chain_bytes"], OPS_PER_SYMBOL["chain_decode"] * dec["symbols"]["chain"]),
+         "cases_ms": dec["cases"], "byte_fill_ms": dec["fill_ms"]},
     ]
     # each run() held every launch it timed against its plain version
     errs = {k: v for r in res.values() for k, v in r["max_abs_err"].items()}
@@ -806,7 +902,9 @@ def main() -> int:
     shapes = {}
     # Random bytes on the HPACK table reach its 13-30-bit codes, whose
     # decode goes through the level-1 LUT in global memory.
-    for table, K in ((static, 256), (static, 512), (hpack, 256)):
+    # block_symbols 100 and 1000 give lane spans that are not 16-byte aligned
+    for table, K in ((static, 256), (static, 512), (static, 100), (static, 1000),
+                     (hpack, 256)):
         dt = DeviceTable.for_table(table, dev)
         chunk = pack_encode.chunk_symbols(K)
         cb, st = pack_encode.count(sym, dt, chunk)
@@ -868,23 +966,27 @@ def main() -> int:
             # the plain form, and the form that also writes each symbol's
             # start bit (the TPU kernel's emit_offs form)
             got = selfsync.decode_segments(words, ent, seg_bits, max_syms, dt)
-            starts_k = torch.zeros((n_segs, max_syms), dtype=torch.int16, device=dev)
+            starts_k = torch.full((n_segs, max_syms), JUNK, dtype=torch.int16, device=dev)
             got_s = selfsync.decode_segments(words, ent, seg_bits, max_syms, dt, starts=starts_k)
-            starts_p = torch.zeros_like(starts_k)
+            starts_p = torch.full_like(starts_k, JUNK)
             want = selfsync.decode_segments_plain(words, ent, seg_bits, max_syms, dt, starts_p)
             torch.cuda.synchronize()
+            defined(torch, selfsync, got, {})
+            defined(torch, selfsync, (*got_s, starts_k), {"starts": starts_k})
             e = max(max_abs_err(a, b) for a, b in zip(got, want))
             e_s = max([max_abs_err(a, b) for a, b in zip(got_s, want)]
                       + [max_abs_err(starts_k, starts_p)])
             errs["selfsync_decode"] = max(errs["selfsync_decode"], e, e_s)
             print(f"phase 2 selfsync_decode {name}, {label}: max_abs_err {e}, with starts "
+                  f"(rows whole: 0 / NO_START past each count) "
                   f"{e_s} ({n_segs} segments of {seg_bits} bits, {int(got[1].sum())} symbols, "
                   f"{int((got[3] != 0).sum())} segments with an invalid window)")
         # the stitch's three launch forms at the launches it makes here, and
         # its body and tail start against the fixpoint's
         calls, stitched = stitch_calls(torch, selfsync, words, n_segs, seg_bits, dt)
         for form, (args, kw) in calls.items():
-            got, want = stitch_form(selfsync, args, kw), stitch_form(selfsync, args, kw, plain=True)
+            got = defined(torch, selfsync, stitch_form(selfsync, args, kw), kw)
+            want = defined(torch, selfsync, stitch_form(selfsync, args, kw, plain=True), kw)
             torch.cuda.synchronize()
             e = max(max_abs_err(a, b) for a, b in zip(got, want))
             stitch_errs[form] = max(stitch_errs.get(form, 0), e)
@@ -1149,6 +1251,10 @@ def main() -> int:
               + (f"{alone:.4f}" if alone is not None else "not measured")
               + f"), plain {p1:.4f} / {p2:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
               f"({forms[form]['lanes']} lanes, {forms[form]['symbols']} symbols)")
+    forms["store_design_ms"] = phase_store_design(
+        torch, selfsync, chain_decode, (words, block_offs, nsyms, out_start, n, dt),
+        stitch_shapes["static"], {"chain_decode": kernel_only.get("chain_decode"),
+                                  **{f: forms[f]["alone_ms"] for f in ("full", "patch")}})
     plan8 = (n_segs, seg_bits)
     by_kernel = _device_ms_by_kernel(torch, lambda: selfsync.stitch(f_words, 0, plan8, f_dt))
     in_kernel = sum(t for k, t in by_kernel.items() if "selfsync_decode_kernel" in k)

@@ -46,15 +46,15 @@ SIGNATURES = {
         _I32, _P, _I64, _I32, _P, _P, _P, _I64, _I32, _P, _I64, _P,
     ),
     # device, words, n_words, bit_offs, n_syms, out_start, n_blocks, l0,
-    # root_bits, l1, l1_size, out, end_bits, bad, stream
+    # root_bits, l1, l1_size, max_len, out, end_bits, bad, stream
     "thc_chain_decode": (
-        _I32, _P, _I64, _P, _P, _P, _I64, _P, _I32, _P, _I64, _P, _P, _P, _P,
+        _I32, _P, _I64, _P, _P, _P, _I64, _P, _I32, _P, _I64, _I32, _P, _P, _P, _P,
     ),
     # device, words, n_words, entries, seg_ids (or null), n_lanes, seg_bits,
-    # max_syms, max_codes, l0, root_bits, l1, l1_size, syms, starts (or
+    # pitch, max_codes, l0, root_bits, l1, l1_size, max_len, syms, starts (or
     # null), counts, exits, bad, blast (or null), stream
     "thc_selfsync_decode": (
-        _I32, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P, _I32, _P, _I64, _P,
+        _I32, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P, _I32, _P, _I64, _I32, _P,
         _P, _P, _P, _P, _P, _P,
     ),
     # device, words, n_words, start_bit, total_bits, out_capacity, l0,
@@ -78,6 +78,15 @@ SIGNATURES = {
     # eos_padding, words, n_words, sums, mode, stream
     "thc_probe_pack": (
         _I32, _P, _I64, _I32, _P, _P, _P, _I64, _I32, _P, _I64, _P, _I32, _P,
+    ),
+    # thc_chain_decode's arguments before the stream, then mode, block
+    "thc_probe_chain_decode": (
+        _I32, _P, _I64, _P, _P, _P, _I64, _P, _I32, _P, _I64, _I32, _P, _P, _P, _I32, _I32, _P,
+    ),
+    # thc_selfsync_decode's arguments before the stream, then mode, block
+    "thc_probe_selfsync_decode": (
+        _I32, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P, _I32, _P, _I64, _I32, _P,
+        _P, _P, _P, _P, _P, _I32, _I32, _P,
     ),
 }
 

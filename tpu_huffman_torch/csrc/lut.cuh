@@ -1,5 +1,5 @@
 // Pieces shared by the decode kernels (chain_decode.cu, selfsync_decode.cu,
-// stream_decode.cu): the two-level LUT lookup and the funnel-shift window.
+// stream_decode.cu): the two-level LUT lookup and the stream cursor.
 //
 // LUT entry forms (packed by ops/encode.py, DeviceTable):
 //   level 0: (val << 8) | (bits & 0xff), bits a signed byte: > 0 leaf
@@ -54,12 +54,19 @@ __device__ __forceinline__ Lut stage_lut(int* smem, const int* __restrict__ l0_g
   return {smem, l1_in_smem ? smem + l0_size : l1_g, root_bits};
 }
 
+// Whether a table's LUT has level-1 entries: some code is longer than the
+// level-0 index.
+inline bool two_level(int root_bits, int max_len) { return max_len > root_bits; }
+
 // Bits read by the code at the head of the MSB-aligned 32-bit window `win`
-// (0 = no code matches), and its symbol in `sym`.
+// (0 = no code matches), and its symbol in `sym`. With TwoLevel false (a
+// table whose codes all fit level 0) the level-1 branch is compiled out: it
+// lengthens every step even where no lane takes it.
+template <bool TwoLevel>
 __device__ __forceinline__ int lut_decode(const Lut& lut, unsigned win, int& sym) {
   const int e = lut.l0[win >> (32 - lut.root_bits)];
   const int bits0 = (int)(signed char)(e & 0xff);
-  if (bits0 >= 0) {
+  if (!TwoLevel || bits0 >= 0) {
     sym = e >> 8;
     return bits0;
   }
@@ -70,42 +77,75 @@ __device__ __forceinline__ int lut_decode(const Lut& lut, unsigned win, int& sym
   return e1 & 0xff;
 }
 
-__device__ __forceinline__ unsigned load_word(const unsigned* __restrict__ w,
-                                              long long i, long long n_words) {
-  return i < n_words ? w[i] : 0u;  // past the stream: zero padding
+// Symbols a lane can decode between two refills of its Cursor: a refill
+// leaves at least 32 bits in it, and each step needs max_len of them.
+inline int refill_group(int max_len) {
+  return max_len >= 32 ? 1 : (max_len < 1 ? 32 : 32 / max_len);
 }
 
-// A position in the stream: word index and phase, with the two words under
-// the window kept in registers.
+// A position in the stream: the next bits MSB-aligned in a 64-bit register,
+// and the word after them, loaded ahead. refill() appends that word once 32
+// or fewer bits are left and issues the load of the next one, so the word
+// a refill appends was loaded at the refill before it.
+//
+// Refills come every refill_group(max_len) steps, at the same step for every
+// lane of a warp. A warp waits on a register written by a load until the
+// load has landed for all its lanes; had each lane loaded its next word when
+// its own window crossed a word boundary (every ~3.4 symbols, so some lane of
+// the warp at nearly every step), every step would wait on a load issued the
+// step before.
+//
+// The position is a 64-bit base (the start word) plus 32-bit word and bit
+// counts, so the per-symbol work shifts and adds in 32 bits; only bit() goes
+// back to 64 bits.
 struct Cursor {
-  const unsigned* words;
-  long long n_words;
-  long long wi;
-  int sh;  // in [0, 31]
-  unsigned w0, w1;
+  const unsigned* base;     // the start word
+  long long base_bit;       // its first bit
+  int lim;                  // words of the stream from `base` on, in [0, INT_MAX]
+  int next;                 // the word `ahead` holds, from `base`
+  int avail;                // valid bits at the top of `bits`, in [0, 64]
+  unsigned ahead;           // word `next`
+  unsigned long long bits;  // the stream from bit() on, MSB-aligned
 
-  __device__ Cursor(const unsigned* __restrict__ w, long long n, long long start)
-      : words(w), n_words(n), wi(start >> 5), sh((int)(start & 31)) {
-    w0 = load_word(words, wi, n_words);
-    w1 = load_word(words, wi + 1, n_words);
+  __device__ Cursor(const unsigned* __restrict__ w, long long n, long long start) {
+    const long long ws = start >> 5;
+    const long long left = n - ws;
+    const int sh = (int)(start & 31);
+    base = w + ws;
+    base_bit = ws << 5;
+    lim = left <= 0 ? 0 : (left >= 0x7fffffffLL ? 0x7fffffff : (int)left);
+    bits = (((unsigned long long)load(0) << 32) | load(1)) << sh;
+    avail = 64 - sh;
+    next = 2;
+    ahead = load(2);
   }
 
-  __device__ __forceinline__ long long bit() const { return (wi << 5) + sh; }
-
-  // (w0 << sh) | (w1 >> (32 - sh)) without a shift by 32.
-  __device__ __forceinline__ unsigned window() const {
-    return __funnelshift_l(w1, w0, sh);
+  // past the stream: zero padding
+  __device__ __forceinline__ unsigned load(int i) const {
+    return i < lim ? base[i] : 0u;
   }
 
-  // step <= 32 and sh < 32: at most one word boundary is crossed.
-  __device__ __forceinline__ void advance(int step) {
-    sh += step;
-    if (sh >= 32) {
-      sh -= 32;
-      ++wi;
-      w0 = w1;
-      w1 = load_word(words, wi + 1, n_words);
+  __device__ __forceinline__ long long bit() const {
+    return base_bit + 32LL * next - avail;
+  }
+
+  // Once 32 or fewer bits are left (never fewer than 0: a group takes at
+  // most 32), append `ahead` and load the word after it.
+  __device__ __forceinline__ void refill() {
+    if (avail <= 32) {
+      bits |= (unsigned long long)ahead << (32 - avail);
+      avail += 32;
+      ahead = load(++next);
     }
+  }
+
+  // The 32 bits at bit(); those past `avail` read as 0 (a lookup needs at
+  // most max_len of them, which a refill group guarantees).
+  __device__ __forceinline__ unsigned window() const { return (unsigned)(bits >> 32); }
+
+  __device__ __forceinline__ void advance(int step) {
+    bits <<= step;
+    avail -= step;
   }
 };
 

@@ -15,19 +15,23 @@
 // entries stop changing, is the fallback for the segments that cannot be
 // resolved so.
 //
-// Per thread, from the segment-relative int32 entry bit: per step it
-// funnel-shifts a 32-bit window from the global words (reads past the stream
-// give zeros) and looks it up in the LUT (both in lut.cuh). A code writes its
-// symbol byte to syms[t, count] and advances by its length; a window no code
-// matches records bad = 1 + its first invalid bit, advances 1 bit and takes
-// no output slot. The walk stops at the first codeword start at or past the
+// Per thread, from the segment-relative int32 entry bit
+// (thc::segment_loop, decode_loop.cuh): per step it takes the 32-bit window
+// at the head of its stream register (thc::Cursor; reads past the stream
+// give zeros) and looks it up in the LUT (both in lut.cuh). A code takes
+// the row's next slot and advances by its length; a window no code matches
+// records bad = 1 + its first invalid bit, advances 1 bit and takes no
+// slot. The walk stops at the first codeword start at or past the
 // segment's end, so every exit is >= seg_bits and every next entry lies in
-// [0, max code length). Outputs: syms u8[T, max_syms], counts, exits
-// (segment-relative) and bad, int32[T], by thread t.
+// [0, max code length).
+//
+// Outputs: syms u8[T, pitch], a lane's symbols then 0 to the row's end;
+// counts, exits (segment-relative) and bad, int32[T], by thread t.
 //
 // Optional outputs and inputs, each off with a null pointer or 0:
-//   starts  int16 [T, max_syms] (the TPU kernel's `emit_offs=True` form):
-//           each emitted symbol's segment-relative start bit, in its slot
+//   starts  int16 [T, pitch] (the TPU kernel's `emit_offs=True` form):
+//           each emitted symbol's segment-relative start bit, in its slot,
+//           then NO_START (32767) to the row's end, so each row ascends
 //           (seg_bits <= 32767, checked by the wrapper). The stitch merges
 //           and cuts at these: a chain that steps 1 bit at invalid windows
 //           cannot be rebuilt from a cumsum of code lengths.
@@ -52,96 +56,81 @@
 // vector registers and VMEM tiles; here each segment is an independent
 // thread reading its words through the cache.
 //
-// Bound: the serial per-symbol dependency inside a segment (a shared-memory
-// lookup and a funnel shift per symbol), as in chain_decode.cu; throughput
-// comes from the segments in flight, S = stream bits / seg_bits on the full
-// pass and the patch, at most 256 on a repair.
+// Bound: stores first, then the serial chain. Rows lie `pitch` slots apart,
+// so one store a symbol (and one a start) made every warp store touch 32
+// sectors for 32 or 64 bytes, and that store traffic set the time of every
+// form. Each lane now gathers its symbols and starts in registers and
+// writes whole 32-byte sectors (thc::Emitter<kEmitSector>), then fills the
+// rest of its row with 0 and NO_START, so the caller allocates the rows
+// without a fill. ops/selfsync.py rounds the pitch up to 32 slots, so every
+// row starts on a sector and its last flush is whole. The words come in at
+// refills the whole warp makes at the same step, each loaded one refill
+// ahead (thc::Cursor), and a table whose codes fit the LUT's level 0 gets a
+// loop without the level-1 branch. What is left is each symbol's dependent
+// lookup and shift; throughput comes from the segments in flight, S = stream
+// bits / seg_bits on the full pass and the patch, at most max(256, S / 32)
+// on a repair.
 
-#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "lut.cuh"
+#include "decode_loop.cuh"
 
 namespace {
 
 constexpr int kThreads = 128;
 
+template <bool Starts, bool TwoLevel>
 __global__ void selfsync_decode_kernel(
     const unsigned* __restrict__ words, long long n_words,
     const int* __restrict__ entries, const int* __restrict__ seg_ids,
-    long long n_lanes, int seg_bits, int max_syms, int max_codes,
+    long long n_lanes, int seg_bits, int pitch, int max_codes,
     const int* __restrict__ l0_g, int root_bits, const int* __restrict__ l1_g,
-    long long l1_size, int l1_in_smem, uint8_t* __restrict__ syms,
+    long long l1_size, int l1_in_smem, int group, uint8_t* __restrict__ syms,
     int16_t* __restrict__ starts, int* __restrict__ counts,
     int* __restrict__ exits, int* __restrict__ bad, int* __restrict__ blast) {
   extern __shared__ int smem[];
   const thc::Lut lut =
       thc::stage_lut(smem, l0_g, root_bits, l1_g, l1_size, l1_in_smem);
-
   const long long t = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (t >= n_lanes) return;
-  const long long s = seg_ids ? (long long)seg_ids[t] : t;
-  if (s < 0) return;  // a dead lane of a repair launch
-  const long long seg_start = s * seg_bits;
-  uint8_t* row = syms + t * max_syms;
-  int16_t* start_row = starts ? starts + t * max_syms : nullptr;
-  const int cap = max_codes > 0 ? max_codes : INT_MAX;
-  int rel = entries[t];  // segment-relative bit, >= 0
-  thc::Cursor cur(words, n_words, seg_start + rel);
-  int count = 0;
-  int first_bad = 0;
-  int last_bad = 0;
-  while (rel < seg_bits && count < cap) {
-    int sym;
-    const int ln = thc::lut_decode(lut, cur.window(), sym);
-    int step = ln;
-    if (ln == 0) {
-      if (first_bad == 0) first_bad = rel + 1;
-      last_bad = rel + 1;
-      step = 1;
-    } else {
-      if (count < max_syms) {  // always true for entries >= 0
-        row[count] = (uint8_t)sym;
-        if (start_row) start_row[count] = (int16_t)rel;
-      }
-      ++count;
-    }
-    rel += step;
-    cur.advance(step);
-  }
-  counts[t] = count;
-  exits[t] = rel;
-  bad[t] = first_bad;
-  if (blast) blast[t] = last_bad;
+  thc::segment_lane<thc::kEmitSector, Starts, TwoLevel>(
+      lut, words, n_words, entries, seg_ids, t, seg_bits, pitch, max_codes, group, syms,
+      starts, counts, exits, bad, blast);
 }
 
 }  // namespace
 
 extern "C" {
 
-// syms holds n_lanes * max_syms bytes, zeroed by the caller; starts is null
-// or holds n_lanes * max_syms int16; seg_ids and blast are null or hold
-// n_lanes int32; entries, counts, exits and bad hold n_lanes int32.
-// max_codes 0 means no cap. `device` (the tensors' CUDA device) is made
-// current before the launch on `stream`.
+// syms holds n_lanes * pitch bytes, starts is null or holds n_lanes * pitch
+// int16; the kernel writes every slot of a live lane's rows, so neither
+// needs a fill. seg_ids and blast are null or hold n_lanes int32; entries,
+// counts, exits and bad hold n_lanes int32. max_codes 0 means no cap;
+// max_len is the table's longest code. `device` (the tensors' CUDA device) is
+// made current before the launch on `stream`.
 int thc_selfsync_decode(int device, const void* words, long long n_words,
                         const void* entries, const void* seg_ids,
-                        long long n_lanes, int seg_bits, int max_syms,
+                        long long n_lanes, int seg_bits, int pitch,
                         int max_codes, const void* l0, int root_bits,
-                        const void* l1, long long l1_size, void* syms,
+                        const void* l1, long long l1_size, int max_len, void* syms,
                         void* starts, void* counts, void* exits, void* bad,
                         void* blast, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const thc::LutSmem smem = thc::lut_smem(root_bits, l1_size);
   const unsigned grid = (unsigned)((n_lanes + kThreads - 1) / kThreads);
-  selfsync_decode_kernel<<<grid, kThreads, smem.bytes, (cudaStream_t)stream>>>(
+  const bool two = thc::two_level(root_bits, max_len);
+  auto kernel = starts ? (two ? selfsync_decode_kernel<true, true>
+                              : selfsync_decode_kernel<true, false>)
+                       : (two ? selfsync_decode_kernel<false, true>
+                              : selfsync_decode_kernel<false, false>);
+  kernel<<<grid, kThreads, smem.bytes, (cudaStream_t)stream>>>(
       (const unsigned*)words, n_words, (const int*)entries,
-      (const int*)seg_ids, n_lanes, seg_bits, max_syms, max_codes,
+      (const int*)seg_ids, n_lanes, seg_bits, pitch, max_codes,
       (const int*)l0, root_bits, (const int*)l1, l1_size, smem.l1_in_smem,
-      (uint8_t*)syms, (int16_t*)starts, (int*)counts, (int*)exits, (int*)bad,
-      (int*)blast);
+      thc::refill_group(max_len), (uint8_t*)syms, (int16_t*)starts, (int*)counts,
+      (int*)exits, (int*)bad, (int*)blast);
   return (int)cudaGetLastError();
 }
 

@@ -23,8 +23,9 @@
 // The result is (n_decoded, end_bit, status) in info[0..2]; end_bit is the
 // resume point.
 //
-// Bound: the serial dependency, one LUT lookup and one funnel shift per
-// symbol on one thread. The block's other threads only help stage the LUT in
+// Bound: the serial dependency, one LUT lookup and one shift per symbol on
+// one thread (thc::Cursor, refilled before every symbol so that the stop
+// rules see a full 32-bit window). The block's other threads only help stage the LUT in
 // shared memory. The kernel is meant for short walks: a tail of at most two
 // segments plus one code, or an input of at most 2048 bytes, or a capped
 // prefix.
@@ -58,8 +59,9 @@ __global__ void stream_decode_kernel(
   for (;;) {
     const long long left = total_bits - cur.bit();
     if (left <= 0) break;
+    cur.refill();  // every step: 32 bits in the window, as the stop rules read them
     int sym;
-    const int ln = thc::lut_decode(lut, cur.window(), sym);
+    const int ln = thc::lut_decode<true>(lut, cur.window(), sym);
     if (ln == 0) {
       if (left >= 32) status = kStatusUnknownSymbol;
       break;

@@ -89,7 +89,7 @@ def decode_chains(words: torch.Tensor, bit_offs: torch.Tensor,
     err = _build.load().thc_chain_decode(
         dev.index, words.data_ptr(), words.numel(), bit_offs.data_ptr(),
         n_syms.data_ptr(), out_start.data_ptr(), b, dt.l0.data_ptr(),
-        dt.root_bits, dt.l1.data_ptr(), dt.l1.numel(), out.data_ptr(),
+        dt.root_bits, dt.l1.data_ptr(), dt.l1.numel(), dt.table.max_len, out.data_ptr(),
         end_bits.data_ptr(), bad.data_ptr(), stream,
     )
     _build.check("thc_chain_decode", err)

@@ -111,9 +111,15 @@ def supports(table: HuffmanTable) -> bool:
     return 0 < table.max_len <= MAX_CODE_BITS
 
 
+ROW_SLOTS = 32  # the row pitch's multiple: a row of symbols starts on a 32-byte sector
+
+
 def max_symbols(table: HuffmanTable, seg_bits: int) -> int:
-    """Output slots per segment: the most codes that can start in it."""
-    return (seg_bits + table.max_len) // max(int(table.min_len), 1) + 1
+    """Output slots per segment (the rows' pitch): the most codes that can
+    start in it, rounded up to a multiple of ``ROW_SLOTS``, so that the
+    kernel's rows start on a sector and end on a whole flush."""
+    most = (seg_bits + table.max_len) // max(int(table.min_len), 1) + 1
+    return -(-most // ROW_SLOTS) * ROW_SLOTS
 
 
 def _plan_segments(total_bits: int, seg_words: int):
@@ -162,18 +168,25 @@ def decode_segments(words: torch.Tensor, entries: torch.Tensor, seg_bits: int,
     0, once it has emitted that many codes.
 
     Returns (syms uint8[T, max_syms], counts, exits, bad), each of the last
-    three int32[T]: the symbols of each lane in its row (zeros past its
-    count), the exit bit relative to the segment (where the lane stopped),
-    and 0 or 1 + the segment-relative bit of the first window no code
-    matched. Such a window advances 1 bit and takes no slot.
+    three int32[T]: the symbols of each lane in its row, the exit bit
+    relative to the segment (where the lane stopped), and 0 or 1 + the
+    segment-relative bit of the first window no code matched. Such a window
+    advances 1 bit and takes no slot.
 
     ``starts``, when given, is an int16 [T, max_syms] tensor that the call
     fills with each emitted symbol's segment-relative start bit, in the
-    symbol's slot; slots past a lane's count are left as they were.
-    ``blast``, when given, is an int32 [T] tensor that the call fills with 0
-    or 1 + the segment-relative bit of the last invalid window. A negative
-    ``seg_ids`` entry is a dead lane: its syms, counts, exits and bad are 0
-    and its starts and blast are left as they were.
+    symbol's slot. ``blast``, when given, is an int32 [T] tensor that the
+    call fills with 0 or 1 + the segment-relative bit of the last invalid
+    window.
+
+    The row contract: a live lane writes its whole rows, its symbols then 0
+    in ``syms`` and its start bits then ``NO_START`` in ``starts``, up to
+    ``max_syms``, so every row of ``starts`` ascends and neither tensor
+    needs a fill before the call (the kernel's rows come from
+    ``torch.empty``). A negative ``seg_ids`` entry is a dead lane: it writes
+    nothing, so its syms row is undefined (zeros from the plain version),
+    its counts, exits and bad are 0, and its starts and blast are left as
+    they were.
     """
     _check(words, entries, dt)
     dev = words.device
@@ -191,7 +204,7 @@ def decode_segments(words: torch.Tensor, entries: torch.Tensor, seg_bits: int,
                                      max_codes, seg_ids)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
-    syms = torch.zeros((t, max_syms), dtype=torch.uint8, device=dev)
+    syms = torch.empty((t, max_syms), dtype=torch.uint8, device=dev)
     new = torch.empty if seg_ids is None else torch.zeros  # dead lanes write nothing
     counts, exits, bad = (new(t, dtype=torch.int32, device=dev) for _ in range(3))
     words, entries = words.contiguous(), entries.contiguous()
@@ -203,8 +216,8 @@ def decode_segments(words: torch.Tensor, entries: torch.Tensor, seg_bits: int,
     err = _build.load().thc_selfsync_decode(
         dev.index, words.data_ptr(), words.numel(), entries.data_ptr(), ptr(seg_ids), t,
         seg_bits, max_syms, max_codes, dt.l0.data_ptr(), dt.root_bits, dt.l1.data_ptr(),
-        dt.l1.numel(), syms.data_ptr(), ptr(starts), counts.data_ptr(), exits.data_ptr(),
-        bad.data_ptr(), ptr(blast), stream,
+        dt.l1.numel(), dt.table.max_len, syms.data_ptr(), ptr(starts), counts.data_ptr(),
+        exits.data_ptr(), bad.data_ptr(), ptr(blast), stream,
     )
     _build.check("thc_selfsync_decode", err)
     launches["selfsync_decode"] += 1
@@ -220,8 +233,8 @@ def decode_segments_plain(words: torch.Tensor, entries: torch.Tensor,
                           starts: torch.Tensor | None = None,
                           blast: torch.Tensor | None = None, max_codes: int = 0,
                           seg_ids: torch.Tensor | None = None):
-    """Plain version of :func:`decode_segments`: every lane steps at once,
-    in int64, until all have stopped."""
+    """Plain version of :func:`decode_segments`, with the same row contract:
+    every lane steps at once, in int64, until all have stopped."""
     dev = words.device
     w64 = u32(words)
     t = entries.numel()
@@ -234,6 +247,8 @@ def decode_segments_plain(words: torch.Tensor, entries: torch.Tensor,
     bad = torch.zeros(t, dtype=torch.int64, device=dev)
     last_bad = torch.zeros(t, dtype=torch.int64, device=dev)
     syms = torch.zeros((t, max_syms), dtype=torch.uint8, device=dev)
+    if starts is not None:
+        starts[live] = NO_START
     while True:
         active = live & (rel < seg_bits)
         if max_codes:
@@ -263,15 +278,13 @@ def _fixpoint(words: torch.Tensor, n_segs: int, seg_bits: int, start_bit: int,
 
     Returns the converged pass's (syms, counts, exits, bad), its entries and
     the number of passes; ``starts`` (optional, int16 [n_segs, max_syms])
-    ends up holding the converged pass's starts, zeros past each count.
+    ends up holding the converged pass's starts, NO_START past each count.
     Pass k makes segment k exact, so the entries converge within ``n_segs``
     passes; raises RuntimeError if they have not after ``n_segs + 1``.
     """
     entries = torch.zeros(n_segs, dtype=torch.int32, device=words.device)
     entries[:1].fill_(start_bit)
     for passes in range(1, n_segs + 2):
-        if starts is not None:
-            starts.zero_()
         syms, counts, exits, bad = decode_segments(words, entries, seg_bits, max_syms, dt,
                                                    starts=starts)
         new = torch.cat([entries[:1], exits[:-1] - seg_bits])
@@ -326,13 +339,13 @@ def stitch(words: torch.Tensor, start_bit: int, plan: tuple, dt,
     # 1. the full pass, from segment-aligned entries
     entries0 = torch.zeros(n_segs, dtype=torch.int32, device=dev)
     entries0[:1].fill_(start_bit)  # a fill kernel: no host-to-device copy
-    starts0 = torch.full((n_segs, max_syms), NO_START, dtype=torch.int16, device=dev)
+    starts0 = torch.empty((n_segs, max_syms), dtype=torch.int16, device=dev)
     blast0 = torch.empty(n_segs, dtype=torch.int32, device=dev)
     syms0, count0, exits0, _bad0 = decode_segments(words, entries0, seg_bits, max_syms, dt,
                                                    starts=starts0, blast=blast0)
     # 2. the true entries, and 3. the patch from them
     entries1 = torch.cat([entries0[:1], exits0[:-1] - seg_bits])
-    starts_a = torch.full((n_segs, a), NO_START, dtype=torch.int16, device=dev)
+    starts_a = torch.empty((n_segs, a), dtype=torch.int16, device=dev)
     syms_a, count_a, exits_a, bad_a = decode_segments(words, entries1, seg_bits, a, dt,
                                                       starts=starts_a, max_codes=a)
     count0, count_a, blast0 = count0.long(), count_a.long(), blast0.long()
@@ -383,7 +396,7 @@ def stitch(words: torch.Tensor, start_bit: int, plan: tuple, dt,
         seg_ids.scatter_(0, lane, torch.arange(n_segs, dtype=torch.int32, device=dev))
         seg_ids = seg_ids[:lanes]
         ent_r = torch.where(seg_ids >= 0, entries1[seg_ids.clamp(min=0).long()], 0)
-        starts_r = torch.full((lanes, max_syms), NO_START, dtype=torch.int16, device=dev)
+        starts_r = torch.empty((lanes, max_syms), dtype=torch.int16, device=dev)
         syms_r, count_r, exits_r, bad_r = decode_segments(
             words, ent_r, seg_bits, max_syms, dt, starts=starts_r, seg_ids=seg_ids)
         ids = seg_ids[:n_fail].long()
@@ -425,7 +438,7 @@ def _fixpoint_body(words: torch.Tensor, start_bit: int, plan: tuple, dt,
         if any_bad:
             raise UnknownSymbolError()
         return _body(syms, counts), n_segs * seg_bits + last_exit - seg_bits, total, None
-    starts = torch.zeros((n_segs, max_syms), dtype=torch.int16, device=dev)
+    starts = torch.empty((n_segs, max_syms), dtype=torch.int16, device=dev)
     syms, counts, exits, bad, _entries, _passes = _fixpoint(
         words, n_segs, seg_bits, start_bit, max_syms, dt, starts=starts)
     cum = torch.cumsum(counts, 0, dtype=torch.int64)

@@ -9,7 +9,9 @@
   ``f_onehot``, P1's ``k_onehot``);
 * :mod:`.latency` — dependent ALU and gather steps, swept over occupancy
   (P4);
-* :mod:`.pack_ablate` — the port's pack loop with parts removed (P5).
+* :mod:`.pack_ablate` — the port's pack loop with parts removed (P5);
+* :mod:`.decode_ablate` — the port's two parallel decode loops with their
+  stores swapped (the question of ``scripts/prof/prof_decode_parts.py``).
 
 Each module has its kernels' wrappers (the plain PyTorch version for a CPU
 tensor, the kernel for a CUDA tensor, a launch count), its scripts' inputs
@@ -17,7 +19,7 @@ regenerated from their seeds in their draw order, a ``run`` that checks
 every form against the plain version at the scripts' shapes and times it
 at a shape that fills the card, and a ``main``:
 
-    python -m tpu_huffman_torch.prof.lut   # or .mma_lut, .latency, .pack_ablate
+    python -m tpu_huffman_torch.prof.lut   # or .mma_lut, .latency, .pack_ablate, .decode_ablate
 
 Without a CUDA device ``run`` and ``main`` raise. This module holds what
 they share: the device checks, the launch shape, the comparison with the

@@ -10,10 +10,15 @@ Phases (any failure raises and the script exits non-zero):
      all at once) and print the build time;
   2. each kernel against its plain PyTorch version on the same CUDA tensors
      at main-path shapes, every output bit-identical:
-     - count, pack, chain_decode: 8 MiB of random bytes (seed 2024) on the
-       static table at block_symbols 256, 512, 100 and 1000 (the last two
-       give chains whose output spans are not 16-byte aligned), and on the
-       HPACK table (codes up to 30 bits) at 256;
+     - count, pack (words and block offsets), chain_decode: 8 MiB of random
+       bytes (seed 2024) on the static table at block_symbols 256, 512, 100
+       and 1000 (the last two give chains whose output spans are not
+       16-byte aligned), and on the HPACK table (codes up to 30 bits) at
+       256; count and pack also at block_symbols 1; pack into a fresh
+       output and into one filled with junk (it writes every word); count
+       and pack at the tile's edges (n = TILE - 1, TILE, TILE + 1, a last
+       tile of fewer than 32 bits) and on a view off 16-byte alignment,
+       at block_symbols 1, 100 and 256 on both tables;
      - selfsync_decode: the stream of those 8 MiB on the static table, the
        same bytes taken as a stream (a foreign stream full of invalid
        windows), and the HPACK stream of them (30-bit codes, level-1 LUT in
@@ -40,12 +45,14 @@ Phases (any failure raises and the script exits non-zero):
      stream with no index), on the static table at 8 and 64 MiB of random
      bytes and the HPACK table at 8 MiB of header text; the decoded bytes
      equal the input, and the encoded bytes and index equal the plain
-     version's; each decode takes the stitch (2 selfsync_decode launches,
+     version's; each encode makes exactly one count and one pack launch;
+     each decode takes the stitch (2 selfsync_decode launches,
      3 with a repair, never the fixpoint), its launches and repaired
      segments printed;
   5. timings with CUDA events at 8 MiB: each kernel's wrapper beside its
      plain version (prof.median_ms: median of 11 samples of 5 calls after
-     a warm-up), each kernel alone by torch.profiler, the stitch's three
+     a warm-up), each kernel alone by torch.profiler (the pack at
+     block_symbols 256 and 100, beside its bound), the stitch's three
      forms with their bounds, each redesigned decode form (chain_decode, the
      full pass, the patch) beside the same loop with one store a symbol and
      with none (prof.decode_ablate, prof.kernel_ms), the stitch's torch ops
@@ -80,7 +87,9 @@ Phases (any failure raises and the script exits non-zero):
      with the launch counters reset just before: every form of lut_chain
      (P1, P2, P3) and lut_wide (P6), lut_wide_mma and lut_chain_mma
      against lut_wide / lut_chain, every kind and form of step_chain (P4),
-     every pack_ablate mode (P5; full against encode_pack's words), and
+     every pack_ablate mode (P5; the per-thread loop of the design before
+     the tile loop at chunks 32 and 4, and the tile loop, both against
+     encode_pack's words), and
      every decode_ablate mode and block size (the decode loops' stores
      swapped: the question of scripts/prof/prof_decode_parts.py),
      each bit-identical to its plain version at the script's shape and
@@ -124,7 +133,7 @@ SCALAR_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # dense tensor-core bf16 (NVIDIA's data sheet)
 # Integer operations per symbol in each kernel's loop body (a table gather,
 # shifts, compares, adds, the store), counted from the sources in csrc/.
-OPS_PER_SYMBOL = {"encode_count": 3, "encode_pack": 12, "chain_decode": 10,
+OPS_PER_SYMBOL = {"encode_count": 5, "encode_pack": 12, "chain_decode": 10,
                   "selfsync_decode": 10, "selfsync_decode_starts": 11, "stream_decode": 10}
 
 
@@ -305,6 +314,32 @@ def stitch_calls(torch, selfsync, words, n_segs: int, seg_bits: int, dt, seed: i
 
 
 JUNK = -5  # what a row or lane output holds before a call that must overwrite it
+
+
+def check_encode(torch, pack_encode, sym, dt, block_symbols: int) -> tuple:
+    """count and pack on `sym` against their plain versions, the pack both
+    into a fresh output and into one filled with JUNK (it must write every
+    word). Returns (count's max_abs_err, pack's over words and block
+    offsets, (tile offsets, total bits, n_words, words, block offsets))."""
+    from tpu_huffman_torch.prof import max_abs_err
+
+    tile_bits, stats = pack_encode.count(sym, dt)
+    want_bits, want_stats = pack_encode.count_plain(sym, dt)
+    torch.cuda.synchronize()
+    e_count = max(max_abs_err(tile_bits, want_bits), max_abs_err(stats, want_stats))
+    incl = torch.cumsum(tile_bits, 0, dtype=torch.int64)
+    offs = incl - tile_bits
+    total = int(incl[-1])
+    n_words = -(-(total + pack_encode.pad_code(total, 0xFF)[1]) // 32)
+    args = (sym, dt, offs, total, 0xFF, n_words, block_symbols)
+    words, block_offs = pack_encode.pack(*args)
+    junk = torch.full((n_words,), JUNK, dtype=torch.int32, device=sym.device)
+    words_j, block_offs_j = pack_encode.pack(*args, out=junk)
+    want_words, want_offs = pack_encode.pack_plain(*args)
+    torch.cuda.synchronize()
+    e_pack = max(max_abs_err(w, want_words) for w in (words, words_j))
+    e_pack = max(e_pack, *(max_abs_err(b, want_offs) for b in (block_offs, block_offs_j)))
+    return e_count, e_pack, (offs, total, n_words, words, block_offs)
 
 
 def stitch_form(selfsync, args, kw, plain: bool = False):
@@ -712,11 +747,12 @@ def phase_probes(torch, dev) -> list:
         print(f"phase 10 lut_{name}_mma, {mma['n']} elements: {mma[name]['ms']:.4f} ms "
               f"({mma[name]['ns_per_lookup']:.5f} ns/lookup), plain {mma[name]['plain_ms']:.3f} ms")
     pk = res["pack"]
-    print(f"phase 10 pack_ablate, {pk['n']} symbols, one thread a 32-symbol chunk: "
+    print(f"phase 10 pack_ablate, {pk['n']} symbols, one thread a chunk (32 symbols but "
+          f"'thread 4'), full one block a tile ({pk['n_tiles']} tiles): "
           + ", ".join(f"{m} {r['ms']:.4f} ms" for m, r in pk["modes"].items())
-          + f"; encode_pack {pk['pack_ms']:.4f} ms (full and encode_pack include the "
-          f"{pk['fill_ms']:.4f} ms fill of the output words); plain full "
-          f"{pk['modes']['full']['plain_ms']:.3f} ms")
+          + f"; encode_pack {pk['pack_ms']:.4f} ms (thread includes the "
+          f"{pk['fill_ms']:.4f} ms fill of its output words; full and encode_pack fill "
+          f"nothing); plain full {pk['modes']['full']['plain_ms']:.3f} ms")
 
     dec = res["decode"]
     for case, t in dec["cases"].items():
@@ -818,9 +854,9 @@ def phase_probes(torch, dev) -> list:
          "plain_ms": pk["modes"]["full"]["plain_ms"], "library_ms": None,
          "library": "none: no PyTorch call packs variable-length codes",
          "timed": f"full mode, {n_sym} symbols",
-         "work": (n_sym + 8 * pk["n_chunks"] + 4 * pk["n_words"] + 2048, n_sym),
+         "work": (n_sym + 4 * pk["n_words"], OPS_PER_SYMBOL["encode_pack"] * n_sym),
          "modes_ms": {m: r["ms"] for m, r in pk["modes"].items()},
-         "encode_pack_ms": pk["pack_ms"], "output_fill_ms": pk["fill_ms"]},
+         "encode_pack_ms": pk["pack_ms"], "thread_output_fill_ms": pk["fill_ms"]},
         {"name": "decode_ablate", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/probe_decode.cu",
          "replaces": "scripts/prof/prof_decode_parts.py:48",
@@ -901,28 +937,22 @@ def main() -> int:
     sym = torch.frombuffer(bytearray(data8), dtype=torch.uint8).to(dev)
     shapes = {}
     # Random bytes on the HPACK table reach its 13-30-bit codes, whose
-    # decode goes through the level-1 LUT in global memory.
-    # block_symbols 100 and 1000 give lane spans that are not 16-byte aligned
+    # decode goes through the level-1 LUT in global memory; block_symbols
+    # 100 and 1000 give lane spans that are not 16-byte aligned; count and
+    # pack also run at block_symbols 1 (a block offset every symbol).
     for table, K in ((static, 256), (static, 512), (static, 100), (static, 1000),
-                     (hpack, 256)):
+                     (static, 1), (hpack, 256)):
         dt = DeviceTable.for_table(table, dev)
-        chunk = pack_encode.chunk_symbols(K)
-        cb, st = pack_encode.count(sym, dt, chunk)
-        cb_p, st_p = pack_encode.count_plain(sym, dt, chunk)
-        torch.cuda.synchronize()
-        e = max(max_abs_err(cb, cb_p), max_abs_err(st, st_p))
-        errs["encode_count"] = max(errs["encode_count"], e)
-        incl = torch.cumsum(cb, 0, dtype=torch.int64)
-        offs = incl - cb
-        total = int(incl[-1])
-        n_words = -(-(total + pack_encode.pad_code(total, 0xFF)[1]) // 32)
-        words = pack_encode.pack(sym, dt, chunk, offs, total, 0xFF, n_words)
-        w_p = pack_encode.pack_plain(sym, dt, chunk, offs, total, 0xFF, n_words)
-        torch.cuda.synchronize()
-        errs["encode_pack"] = max(errs["encode_pack"], max_abs_err(words, w_p))
+        e_count, e_pack, (offs, total, n_words, words, block_offs) = check_encode(
+            torch, pack_encode, sym, dt, K)
+        errs["encode_count"] = max(errs["encode_count"], e_count)
+        errs["encode_pack"] = max(errs["encode_pack"], e_pack)
+        if K == 1:
+            print(f"phase 2 {table.name} K=1: count, pack (fresh and junk-filled output) "
+                  f"bit-identical to plain ({total} bits, {block_offs.numel()} block offsets)")
+            continue
 
         n = sym.numel()
-        block_offs = offs[:: K // chunk].contiguous()
         nb = block_offs.numel()
         nsyms = torch.full((nb,), K, dtype=torch.int32, device=dev)
         nsyms[-1] = n - (nb - 1) * K
@@ -939,10 +969,29 @@ def main() -> int:
             raise AssertionError(f"kernel decode at K={K} does not return the input")
         if int(end[-1]) != total:
             raise AssertionError(f"last chain ends at {int(end[-1])}, stream at {total}")
-        print(f"phase 2 {table.name} K={K}: count, pack, decode bit-identical "
-              f"to plain ({total} bits, {nb} blocks, max code {int(st[1])})")
-        shapes[table.name, K] = (dt, chunk, offs, total, n_words, words,
+        print(f"phase 2 {table.name} K={K}: count, pack (fresh and junk-filled output), "
+              f"decode bit-identical to plain ({total} bits, {nb} blocks, "
+              f"{offs.numel()} tiles)")
+        shapes[table.name, K] = (dt, offs, total, n_words, words,
                                  block_offs, nsyms, out_start)
+    # the tile's edges, and a view off 16-byte alignment (the byte loads)
+    tile = pack_encode.TILE
+    for table in (static, hpack):
+        dt = DeviceTable.for_table(table, dev)
+        # as many symbols after two whole tiles as take fewer than 32 bits
+        head = torch.cumsum(dt.lengths[sym[2 * tile:2 * tile + 31].long()], 0)
+        edges = {"TILE - 1": sym[:tile - 1], "TILE": sym[:tile], "TILE + 1": sym[:tile + 1],
+                 "a last tile of < 32 bits": sym[:2 * tile + int((head < 32).sum())],
+                 "a view off 16-byte alignment": sym[3:3 * tile + 20]}
+        for label, part in edges.items():
+            e_count = e_pack = 0
+            for K in (1, 100, 256):
+                ec, ep, (_offs, total, *_rest) = check_encode(torch, pack_encode, part, dt, K)
+                e_count, e_pack = max(e_count, ec), max(e_pack, ep)
+            errs["encode_count"] = max(errs["encode_count"], e_count)
+            errs["encode_pack"] = max(errs["encode_pack"], e_pack)
+            print(f"phase 2 count, pack at {label} ({part.numel()} symbols, {table.name}, "
+                  f"{total} bits): max_abs_err {e_count}, {e_pack} at block_symbols 1, 100, 256")
 
     # selfsync_decode on pass 0 (segment-aligned entries, so off the
     # codeword chain) and on the converged pass, for three foreign streams.
@@ -1115,6 +1164,9 @@ def main() -> int:
     print(f"phase 4 indexed path launches: {launches}")
     if not all(launches.values()):
         raise AssertionError(f"a kernel of the indexed path never ran: {launches}")
+    if set(pack_encode.launches.values()) != {len(runs)}:
+        raise AssertionError(f"{len(runs)} encodes made {pack_encode.launches} launches, "
+                             f"not one count and one pack each")
 
     # the foreign-stream path: decode of the same streams, with no index;
     # each must take the stitch (2 launches, 3 with a repair)
@@ -1161,8 +1213,7 @@ def main() -> int:
               f"{ends['segments_repaired']} segments repaired, {f_secs * 1e3:.1f} ms first call")
 
     # ---- 5. timings at 8 MiB ---------------------------------------------
-    dt, chunk, offs, total, n_words, words, block_offs, nsyms, out_start = (
-        shapes[static.name, 256])
+    dt, offs, total, n_words, words, block_offs, nsyms, out_start = shapes[static.name, 256]
     n = sym.numel()
     gbs = lambda ms: n / (ms * 1e-3) / 1e9  # noqa: E731
     f_dt, f_words, n_segs, seg_bits, max_syms, entries, f_nbytes = foreign["static"]
@@ -1173,12 +1224,12 @@ def main() -> int:
         f_words, tail_start, 8 * f_nbytes, None, f_dt)[1].tolist()
     timed = {
         "encode_count": (
-            lambda: pack_encode.count(sym, dt, chunk),
-            lambda: pack_encode.count_plain(sym, dt, chunk),
+            lambda: pack_encode.count(sym, dt),
+            lambda: pack_encode.count_plain(sym, dt),
         ),
         "encode_pack": (
-            lambda: pack_encode.pack(sym, dt, chunk, offs, total, 0xFF, n_words),
-            lambda: pack_encode.pack_plain(sym, dt, chunk, offs, total, 0xFF, n_words),
+            lambda: pack_encode.pack(sym, dt, offs, total, 0xFF, n_words, 256),
+            lambda: pack_encode.pack_plain(sym, dt, offs, total, 0xFF, n_words, 256),
         ),
         "chain_decode": (
             lambda: chain_decode.decode_chains(words, block_offs, nsyms, out_start, n, dt),
@@ -1202,10 +1253,12 @@ def main() -> int:
         "stream_decode": f"the tail of the 8 MiB stream, {n_tail} symbols",
     }
     n_body = int(counts.sum())
-    # (bytes moved, integer operations) of each timed call
+    # (bytes moved, integer operations) of each timed call. The encode's
+    # bytes are the design's floor: the symbols read once, the words and
+    # the block offsets written once.
     work = {
-        "encode_count": (n + 4 * offs.numel() + 16 + 4 * 256, OPS_PER_SYMBOL["encode_count"] * n),
-        "encode_pack": (n + 8 * offs.numel() + 8 * 256 + 4 * n_words,
+        "encode_count": (n, OPS_PER_SYMBOL["encode_count"] * n),
+        "encode_pack": (n + 4 * n_words + 8 * block_offs.numel(),
                         OPS_PER_SYMBOL["encode_pack"] * n),
         "chain_decode": (4 * n_words + 20 * block_offs.numel() + n + 8 * block_offs.numel()
                          + 4 + 4 * dt.l0.numel(), OPS_PER_SYMBOL["chain_decode"] * n),
@@ -1231,6 +1284,22 @@ def main() -> int:
         got = kernel_only.get(name)
         print(f"phase 5 {name}: kernel alone (torch.profiler) "
               + (f"{got:.4f} ms" if got is not None else "not measured"))
+    # the pack at block_symbols 100 (the same tiles: only the block offsets
+    # differ), beside the pack at 256
+    pack100 = (lambda: pack_encode.pack(sym, dt, offs, total, 0xFF, n_words, 100),
+               lambda: pack_encode.pack_plain(sym, dt, offs, total, 0xFF, n_words, 100))
+    p1, k1, k2, p2 = (median_ms(f) for f in (pack100[1], pack100[0], pack100[0], pack100[1]))
+    alone100 = _profiled_kernel_ms(torch, {"encode_pack": pack100[0]}).get("encode_pack")
+    alone256 = kernel_only.get("encode_pack")
+    bound100 = _bound(n + 4 * n_words + 8 * -(-n // 100), OPS_PER_SYMBOL["encode_pack"] * n)
+    pack_100 = {"ms": min(k1, k2), "plain_ms": min(p1, p2), "alone_ms": alone100,
+                "bound_ms": bound100[0], "bound_by": bound100[1],
+                "alone_ratio_100_to_256": (alone100 / alone256 if alone100 and alone256
+                                           else None)}
+    print(f"phase 5 encode_pack at block_symbols 100: kernel {k1:.4f} / {k2:.4f} ms (alone "
+          + (f"{alone100:.4f}" if alone100 is not None else "not measured")
+          + f"; {pack_100['alone_ratio_100_to_256']} of the pack alone at 256), plain "
+          f"{p1:.4f} / {p2:.4f} ms, bound {bound100[0]:.6f} ms by {bound100[1]}")
     # the stitch's forms at the launches it made on the static 8 MiB stream:
     # events (wrapper, fresh output buffers) beside the plain version,
     # profiler (kernel alone), bound from this run's lanes and symbols
@@ -1265,7 +1334,7 @@ def main() -> int:
           f"{in_kernel:.4f} ms in selfsync_decode (torch.profiler)")
     for key, t in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:16]:
         print(f"  {t:.4f} ms  {key[:100]}")
-    sym_dev_ms = median_ms(lambda: _encode_device(sym, dt, 0xFF, chunk))
+    sym_dev_ms = median_ms(lambda: _encode_device(sym, dt, 0xFF, 256))
     print(f"phase 5 device-resident encode (count+cumsum+sync+pack): "
           f"{sym_dev_ms:.4f} ms ({gbs(sym_dev_ms):.2f} GB/s)")
     enc8, idx8 = tt.encode_with_index(data8, static)
@@ -1382,7 +1451,8 @@ def main() -> int:
          "replaces": "tpu_huffman/ops/pallas_encode.py:155"},
         {"name": "encode_pack", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/pack_encode.cu",
-         "replaces": "tpu_huffman/ops/pallas_encode.py:155"},
+         "replaces": "tpu_huffman/ops/pallas_encode.py:155",
+         "block_symbols_100": pack_100},
         {"name": "chain_decode", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/chain_decode.cu",
          "replaces": "tpu_huffman/ops/pallas_decode.py:688",

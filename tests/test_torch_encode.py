@@ -115,10 +115,11 @@ def test_random_equals_reference_and_oracle(tables, n, block_symbols):
 
 @pytest.mark.parametrize("block_symbols", [256, 512])
 def test_seam_exact_multiple_of_launch_block(tables, block_symbols):
-    """n an exact multiple of the index block and of one CUDA grid block's
-    symbols: the stitch seam where the JAX TPU path once miscounted."""
+    """n an exact multiple of the index block and of the encode kernels'
+    tile (one CUDA block's symbols): the stitch seam where the JAX TPU path
+    once miscounted."""
     ref, t = tables
-    n = 2 * pack_encode.THREADS * pack_encode.chunk_symbols(block_symbols)
+    n = 2 * pack_encode.TILE
     assert n % block_symbols == 0
     data = np.random.default_rng(3).integers(0, 256, size=n, dtype=np.uint8).tobytes()
     enc, idx = tt.encode_with_index(data, t, block_symbols=block_symbols, device=CPU)

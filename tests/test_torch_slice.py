@@ -96,17 +96,16 @@ def test_kernels_match_plain_on_card():
     dt = DeviceTable.for_table(t, dev)
     data = np.random.default_rng(1).integers(0, 256, size=100_000, dtype=np.uint8)
     sym = torch.from_numpy(data).to(dev)
-    chunk = pack_encode.chunk_symbols(256)
-    cb, st = pack_encode.count(sym, dt, chunk)
-    cb_p, st_p = pack_encode.count_plain(sym, dt, chunk)
+    cb, st = pack_encode.count(sym, dt)
+    cb_p, st_p = pack_encode.count_plain(sym, dt)
     assert torch.equal(cb, cb_p) and torch.equal(st, st_p)
     incl = torch.cumsum(cb, 0, dtype=torch.int64)
     offs = incl - cb
     total = int(incl[-1])
     n_words = -(-(total + pack_encode.pad_code(total, 0xFF)[1]) // 32)
-    w = pack_encode.pack(sym, dt, chunk, offs, total, 0xFF, n_words)
-    assert torch.equal(w, pack_encode.pack_plain(sym, dt, chunk, offs, total, 0xFF, n_words))
-    block_offs = offs[::256 // chunk].contiguous()
+    w, block_offs = pack_encode.pack(sym, dt, offs, total, 0xFF, n_words, 256)
+    w_p, block_offs_p = pack_encode.pack_plain(sym, dt, offs, total, 0xFF, n_words, 256)
+    assert torch.equal(w, w_p) and torch.equal(block_offs, block_offs_p)
     nb = block_offs.numel()
     nsyms = torch.full((nb,), 256, dtype=torch.int32, device=dev)
     nsyms[-1] = sym.numel() - (nb - 1) * 256

@@ -38,12 +38,12 @@ _I32 = ctypes.c_int
 # C entry point -> argument types (csrc/*.cu, extern "C"). Each takes the
 # CUDA device index first and the stream last.
 SIGNATURES = {
-    # device, syms, n, chunk, lengths, chunk_bits, stats, stream
-    "thc_encode_count": (_I32, _P, _I64, _I32, _P, _P, _P, _P),
-    # device, syms, n, chunk, patterns, lengths, chunk_offs, total_bits,
-    # eos_padding, words, n_words, stream
+    # device, syms, n, lengths, tile_bits, stats, stream
+    "thc_encode_count": (_I32, _P, _I64, _P, _P, _P, _P),
+    # device, syms, n, patterns, lengths, tile_offs, total_bits,
+    # eos_padding, words, n_words, block_symbols, block_offs (or null), stream
     "thc_encode_pack": (
-        _I32, _P, _I64, _I32, _P, _P, _P, _I64, _I32, _P, _I64, _P,
+        _I32, _P, _I64, _P, _P, _P, _I64, _I32, _P, _I64, _I64, _P, _P,
     ),
     # device, words, n_words, bit_offs, n_syms, out_start, n_blocks, l0,
     # root_bits, l1, l1_size, max_len, out, end_bits, bad, stream
@@ -74,8 +74,9 @@ SIGNATURES = {
     "thc_probe_mma_lut": (_I32, _P, _I64, _P, _I32, _I32, _I32, _I32, _P, _P),
     # device, x, n, lut, steps, kind, form, block, grid, out, stream
     "thc_probe_step_chain": (_I32, _P, _I64, _P, _I32, _I32, _I32, _I32, _I32, _P, _P),
-    # device, syms, n, chunk, patterns, lengths, chunk_offs, total_bits,
-    # eos_padding, words, n_words, sums, mode, stream
+    # device, syms, n, chunk, patterns, lengths, chunk_offs (tile offsets
+    # for mode full), total_bits, eos_padding, words, n_words, sums, mode,
+    # stream
     "thc_probe_pack": (
         _I32, _P, _I64, _I32, _P, _P, _P, _I64, _I32, _P, _I64, _P, _I32, _P,
     ),

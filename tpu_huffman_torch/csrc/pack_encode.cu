@@ -4,24 +4,29 @@
 // `_make_pack_call`, together with the placement half of its XLA pipeline
 // `_encode_pipeline` (offsets, stitch, EOS pad code).
 //
-// The input is cut into chunks of `chunk` consecutive symbols, one thread
-// each (the chunk divides the index's block_symbols, so every block offset
-// of the index is a chunk offset).
-//   count: each chunk's bit total; the first unknown symbol's index
-//          (atomicMin) and the data's longest code (atomicMax).
-//   (host) the exclusive prefix over chunks is torch.cumsum in int64.
-//   pack:  each chunk writes its codes MSB-first at its global bit offset
-//          (the loop is thc::pack_chunk<kPackFull>, csrc/pack.cuh).
-//          Words that lie wholly inside the chunk get plain stores; its first
-//          and last word may hold a neighbour's bits too, so those are ORed
-//          in (atomicOr, never an add). The output is zeroed first. The
-//          last chunk appends the EOS pad code at total_bits.
+// The input is cut into tiles of thc::kTile (4096) consecutive symbols, one
+// block of 256 threads each, 16 symbols a thread loaded as one uint4 (the
+// loops are in csrc/pack.cuh). The tile does not depend on the index's
+// block_symbols: the pack writes the block offsets from its own scan.
+//   count: each tile's bit total (int32: at most 4096 x 32 bits); the first
+//          unknown symbol's index (atomicMin) and the data's longest code
+//          (atomicMax), one atomic each a block at most.
+//   (host) the exclusive prefix over tiles is torch.cumsum in int64.
+//   pack:  one block a tile: a block-wide scan of the threads' bit totals,
+//          the codes ORed MSB-first into a word buffer in shared memory, the
+//          tile's last word completed with the next tile's head codes (the
+//          EOS pad code after the last tile), and the words the tile owns
+//          copied out with consecutive lanes on consecutive words. Every
+//          output word is written exactly once by a plain store: the output
+//          needs no fill and there is no global atomic. The block offsets
+//          of the index (every block_symbols-th symbol's bit) come from the
+//          same scan.
 // The 256 (pattern, length) pairs sit in shared memory.
 //
-// Bound: bytes. Each symbol is read once and each output word written once;
-// there is no chain between chunks. A thread's own loop is serial through
-// its bit accumulator, but there are n/chunk independent threads (262144 at
-// 8 MiB and chunk 32), enough to keep the memory system busy.
+// Bound: bytes. The symbols are read once, each output word and block
+// offset written once (the head codes re-read at most 32 bytes a tile).
+// The tile base and word indices are int64, so one launch takes a stream
+// past 2^31 bits; offsets inside a tile (< 2^17 + 32) are int32.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -30,66 +35,80 @@
 
 namespace {
 
-constexpr int kThreads = 256;
+using thc::kTile;
+using thc::kTileThreads;
+using thc::kTileWarps;
+using thc::kTileWords;
 
-__global__ void encode_count_kernel(const uint8_t* __restrict__ syms,
-                                    long long n, int chunk,
-                                    const int* __restrict__ lengths,
-                                    int* __restrict__ chunk_bits,
-                                    unsigned long long* __restrict__ stats,
-                                    long long n_chunks) {
+__global__ void __launch_bounds__(kTileThreads)
+    encode_count_kernel(const uint8_t* __restrict__ syms, long long n,
+                        const int* __restrict__ lengths,
+                        int* __restrict__ tile_bits,
+                        unsigned long long* __restrict__ stats) {
   __shared__ int s_len[256];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) s_len[i] = lengths[i];
+  __shared__ int s_red[3][kTileWarps];
+  for (int i = threadIdx.x; i < 256; i += kTileThreads) s_len[i] = lengths[i];
   __syncthreads();
-
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  unsigned max_len = 0;
-  if (c < n_chunks) {
-    const long long i0 = c * chunk;
-    const long long i1 = min(i0 + chunk, n);
-    int bits = 0;
-    long long first_bad = -1;
-    for (long long i = i0; i < i1; ++i) {
-      const int l = s_len[syms[i]];
-      bits += l;
-      max_len = max(max_len, (unsigned)l);
-      if (l == 0 && first_bad < 0) first_bad = i;
-    }
-    chunk_bits[c] = bits;
-    if (first_bad >= 0) atomicMin(&stats[0], (unsigned long long)first_bad);
+  const long long tile = blockIdx.x;
+  const int first = threadIdx.x * thc::kSymsPerThread;  // in the tile
+  const thc::Syms16 s = thc::load_syms16(
+      syms, tile * kTile + first, n, ((uintptr_t)syms & 15) == 0);
+  // The thread's bits, its longest code, and its first unknown symbol's
+  // place in the tile (kTile if none); then the warp's, then the block's.
+  int bits = 0, max_len = 0, bad = kTile;
+#pragma unroll
+  for (int j = 0; j < thc::kSymsPerThread; ++j) {
+    const int l = j < s.count ? s_len[thc::sym_at(s, j)] : 1;
+    bits += j < s.count ? l : 0;
+    max_len = max(max_len, j < s.count ? l : 0);
+    if (l == 0) bad = min(bad, first + j);
   }
-  // One atomic per warp: every lane reaches this point (no early return).
-  const unsigned m = __reduce_max_sync(0xffffffffu, max_len);
-  if ((threadIdx.x & 31) == 0 && m) atomicMax(&stats[1], (unsigned long long)m);
+  bits = (int)__reduce_add_sync(0xffffffffu, (unsigned)bits);
+  max_len = (int)__reduce_max_sync(0xffffffffu, (unsigned)max_len);
+  bad = (int)__reduce_min_sync(0xffffffffu, (unsigned)bad);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    s_red[0][warp] = bits;
+    s_red[1][warp] = max_len;
+    s_red[2][warp] = bad;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    bits = 0;
+    max_len = 0;
+    bad = kTile;
+#pragma unroll
+    for (int k = 0; k < kTileWarps; ++k) {
+      bits += s_red[0][k];
+      max_len = max(max_len, s_red[1][k]);
+      bad = min(bad, s_red[2][k]);
+    }
+    tile_bits[tile] = bits;
+    if (bad < kTile) atomicMin(&stats[0], (unsigned long long)(tile * kTile + bad));
+    // Most tiles find the longest code already there: a plain read first.
+    const unsigned long long m = (unsigned long long)max_len;
+    if (m > *(volatile unsigned long long*)&stats[1]) atomicMax(&stats[1], m);
+  }
 }
 
-__global__ void encode_pack_kernel(const uint8_t* __restrict__ syms,
-                                   long long n, int chunk,
-                                   const unsigned* __restrict__ patterns,
-                                   const int* __restrict__ lengths,
-                                   const long long* __restrict__ chunk_offs,
-                                   long long n_chunks, long long total_bits,
-                                   unsigned eos_padding,
-                                   unsigned* __restrict__ words,
-                                   long long n_words) {
+__global__ void __launch_bounds__(kTileThreads)
+    encode_pack_kernel(const uint8_t* __restrict__ syms, long long n,
+                       const unsigned* __restrict__ patterns,
+                       const int* __restrict__ lengths,
+                       const long long* __restrict__ tile_offs,
+                       long long n_tiles, long long total_bits,
+                       unsigned eos_padding, unsigned* __restrict__ words,
+                       long long n_words, long long block_symbols,
+                       long long* __restrict__ block_offs) {
   __shared__ unsigned s_pat[256];
   __shared__ int s_len[256];
-  for (int i = threadIdx.x; i < 256; i += blockDim.x) {
-    s_pat[i] = patterns[i];
-    s_len[i] = lengths[i];
-  }
-  __syncthreads();
-
-  const long long c = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n_chunks) return;
-  const long long i0 = c * chunk;
-  thc::pack_chunk<thc::kPackFull>(syms, i0, min(i0 + chunk, n), s_pat, s_len,
-                                  chunk_offs[c], c == n_chunks - 1,
-                                  total_bits, eos_padding, words, n_words);
-}
-
-unsigned grid_for(long long n_chunks) {
-  return (unsigned)((n_chunks + kThreads - 1) / kThreads);
+  __shared__ unsigned s_buf[kTileWords];
+  __shared__ int s_warp[kTileWarps];
+  thc::pack_tile_setup(patterns, lengths, s_pat, s_len, s_buf);
+  const long long tile = blockIdx.x;
+  thc::pack_tile(syms, n, tile, n_tiles, ((uintptr_t)syms & 15) == 0, s_pat,
+                 s_len, tile_offs[tile], total_bits, eos_padding, words,
+                 n_words, block_symbols, block_offs, s_buf, s_warp);
 }
 
 }  // namespace
@@ -99,34 +118,39 @@ extern "C" {
 // Every entry point first makes `device` (the tensors' CUDA device) current
 // for this thread, then launches on `stream`, PyTorch's current stream there.
 
-// stats[0] must hold n (no unknown symbol) and stats[1] 0 before the call.
-int thc_encode_count(int device, const void* syms, long long n, int chunk,
-                     const void* lengths, void* chunk_bits, void* stats,
+// stats[0] must hold n (no unknown symbol) and stats[1] 0 before the call;
+// tile_bits holds ceil(n / 4096) ints.
+int thc_encode_count(int device, const void* syms, long long n,
+                     const void* lengths, void* tile_bits, void* stats,
                      void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  const long long n_chunks = (n + chunk - 1) / chunk;
-  encode_count_kernel<<<grid_for(n_chunks), kThreads, 0,
+  const long long n_tiles = (n + kTile - 1) / kTile;
+  encode_count_kernel<<<(unsigned)n_tiles, kTileThreads, 0,
                         (cudaStream_t)stream>>>(
-      (const uint8_t*)syms, n, chunk, (const int*)lengths, (int*)chunk_bits,
-      (unsigned long long*)stats, n_chunks);
+      (const uint8_t*)syms, n, (const int*)lengths, (int*)tile_bits,
+      (unsigned long long*)stats);
   return (int)cudaGetLastError();
 }
 
-// words must be zeroed and hold at least ceil((total_bits + pad) / 32) words.
-int thc_encode_pack(int device, const void* syms, long long n, int chunk,
+// tile_offs: each tile's first bit (int64, the exclusive prefix of the
+// count's tile totals, shifted by any carry before the stream). words need
+// no fill: all n_words >= ceil((total_bits + pad) / 32) words are written.
+// block_offs (or null with block_symbols 0) gets ceil(n / block_symbols)
+// int64 bit offsets.
+int thc_encode_pack(int device, const void* syms, long long n,
                     const void* patterns, const void* lengths,
-                    const void* chunk_offs, long long total_bits,
+                    const void* tile_offs, long long total_bits,
                     int eos_padding, void* words, long long n_words,
-                    void* stream) {
+                    long long block_symbols, void* block_offs, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
-  const long long n_chunks = (n + chunk - 1) / chunk;
-  encode_pack_kernel<<<grid_for(n_chunks), kThreads, 0,
+  const long long n_tiles = (n + kTile - 1) / kTile;
+  encode_pack_kernel<<<(unsigned)n_tiles, kTileThreads, 0,
                        (cudaStream_t)stream>>>(
-      (const uint8_t*)syms, n, chunk, (const unsigned*)patterns,
-      (const int*)lengths, (const long long*)chunk_offs, n_chunks, total_bits,
-      (unsigned)eos_padding, (unsigned*)words, n_words);
+      (const uint8_t*)syms, n, (const unsigned*)patterns, (const int*)lengths,
+      (const long long*)tile_offs, n_tiles, total_bits, (unsigned)eos_padding,
+      (unsigned*)words, n_words, block_symbols, (long long*)block_offs);
   return (int)cudaGetLastError();
 }
 

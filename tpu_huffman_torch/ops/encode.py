@@ -1,12 +1,12 @@
 """One-shot Huffman encode (ports ``tpu_huffman/ops/encode.py``).
 
 ``encode`` and ``encode_with_index`` stage the input bytes on the device,
-run the count kernel, take the exclusive prefix of chunk bit totals with an
+run the count kernel, take the exclusive prefix of tile bit totals with an
 int64 ``torch.cumsum``, read the stream's length and the first unknown
 symbol back in one transfer, and run the pack kernel
 (``ops/pack_encode.py``). The bytes are bit-identical to the reference
 encoder's, including the EOS padding of the final partial byte; the block
-index comes from the same prefix sum.
+index is the pack's block offsets, from its own scan over each tile.
 """
 
 from __future__ import annotations
@@ -101,23 +101,23 @@ class DeviceTable:
 
 
 def _encode_device(symbols: torch.Tensor, dt: DeviceTable, eos_padding: int,
-                   chunk: int):
+                   block_symbols: int | None = None):
     """Count, prefix, check, pack. Returns (words int32, total_bits,
-    padded_bits, chunk_offs int64, longest code in the data)."""
+    padded_bits, block offsets int64 (None without block_symbols), longest
+    code in the data)."""
     n = symbols.numel()
-    chunk_bits, stats = pack_encode.count(symbols, dt, chunk)
-    incl = torch.cumsum(chunk_bits, 0, dtype=torch.int64)
-    chunk_offs = incl - chunk_bits
+    tile_bits, stats = pack_encode.count(symbols, dt)
+    incl = torch.cumsum(tile_bits, 0, dtype=torch.int64)
     first_bad, max_len, total_bits = torch.cat([stats, incl[-1:]]).tolist()
     if first_bad < n:
         raise UnknownSymbolError(index=first_bad, symbol=int(symbols[first_bad]))
     _pad, pad_len = pack_encode.pad_code(total_bits, eos_padding)
     padded_bits = total_bits + pad_len
-    words = pack_encode.pack(
-        symbols, dt, chunk, chunk_offs, total_bits, eos_padding,
-        -(-padded_bits // 32),
+    words, block_offs = pack_encode.pack(
+        symbols, dt, incl - tile_bits, total_bits, eos_padding,
+        -(-padded_bits // 32), block_symbols,
     )
-    return words, total_bits, padded_bits, chunk_offs, max_len
+    return words, total_bits, padded_bits, block_offs, max_len
 
 
 def _to_bytes(words: torch.Tensor, padded_bits: int) -> bytes:
@@ -137,7 +137,7 @@ def encode(data, table: HuffmanTable, eos_padding: int = DEFAULT_EOS_PADDING,
         return b""
     dt = DeviceTable.for_table(table, dev)
     words, _total, padded_bits, _offs, _max = _encode_device(
-        symbols, dt, int(eos_padding) & 0xFF, pack_encode.chunk_symbols(DEFAULT_BLOCK_SYMBOLS)
+        symbols, dt, int(eos_padding) & 0xFF
     )
     return _to_bytes(words, padded_bits)
 
@@ -154,7 +154,8 @@ def encode_with_index(data, table: HuffmanTable,
     from .decode import BlockIndex  # decode imports this module
 
     dev = resolve_device(device)
-    chunk = pack_encode.chunk_symbols(block_symbols)
+    if block_symbols < 1:
+        raise ValueError(f"block_symbols must be >= 1, got {block_symbols}")
     symbols = stage_bytes(data, dev)
     n = symbols.numel()
     if n == 0:
@@ -162,15 +163,15 @@ def encode_with_index(data, table: HuffmanTable,
             block_symbols, np.zeros(0, np.int64), np.zeros(0, np.int32), 0, 0
         )
     dt = DeviceTable.for_table(table, dev)
-    words, total_bits, padded_bits, chunk_offs, max_len = _encode_device(
-        symbols, dt, int(eos_padding) & 0xFF, chunk
+    words, total_bits, padded_bits, block_offs, max_len = _encode_device(
+        symbols, dt, int(eos_padding) & 0xFF, block_symbols
     )
     n_blocks = -(-n // block_symbols)
     n_syms = np.full(n_blocks, block_symbols, dtype=np.int32)
     n_syms[-1] = n - (n_blocks - 1) * block_symbols
     index = BlockIndex(
         symbols_per_block=block_symbols,
-        bit_offsets=chunk_offs[:: block_symbols // chunk].cpu().numpy(),
+        bit_offsets=block_offs.cpu().numpy(),
         n_symbols=n_syms,
         total_symbols=n,
         total_bits=total_bits,

@@ -3,14 +3,17 @@ B1 of ``tpu_huffman/ops/pallas_encode.py``: ``_make_pack_call`` with its
 XLA half ``_encode_pipeline`` and ``_pad_code``; the kernels take any table,
 as B1 does).
 
-Two kernels, in ``csrc/pack_encode.cu``:
+Two kernels, in ``csrc/pack_encode.cu``, over tiles of :data:`TILE`
+consecutive symbols (one CUDA block each, whatever the index's
+block_symbols):
 
-* :func:`count` — the bit total of every chunk of ``chunk`` symbols, plus
-  ``stats = [first unknown symbol's index (n if none), longest code]``;
-* :func:`pack` — each chunk's codes MSB-first at its global bit offset, and
-  the EOS pad code at ``total_bits``.
+* :func:`count` — the bit total of every tile, plus ``stats = [first
+  unknown symbol's index (n if none), longest code]``;
+* :func:`pack` — the codes MSB-first from each tile's first bit, the EOS
+  pad code at ``total_bits``, and the index's block offsets. Every output
+  word is written once (the output is never filled first).
 
-Between them the caller takes the exclusive prefix over chunks with
+Between them the caller takes the exclusive prefix over tiles with
 ``torch.cumsum`` in int64, as the JAX package takes it in XLA glue
 (``_exclusive_cumsum_blocks``). The TPU planners (``_plan``, ``pack_k``,
 ``_sub_block``, the span hints and re-runs) only pick static VMEM shapes
@@ -28,16 +31,14 @@ import torch
 from .. import _build
 from .bitpack import MASK32, i32, u32
 
-THREADS = 256  # CUDA threads (chunks) per grid block, as in the .cu source
+# symbols a tile: one block of 256 threads, 16 symbols (one uint4) each
+# (csrc/pack.cuh kTile)
+TILE = 4096
 launches = {"encode_count": 0, "encode_pack": 0}
 
 
-def chunk_symbols(block_symbols: int) -> int:
-    """Symbols per kernel thread: the largest of 32, 16, ..., 1 that divides
-    ``block_symbols``, so every index block starts on a chunk."""
-    if block_symbols < 1:
-        raise ValueError(f"block_symbols must be >= 1, got {block_symbols}")
-    return next(c for c in (32, 16, 8, 4, 2, 1) if block_symbols % c == 0)
+def n_tiles(n: int) -> int:
+    return -(-n // TILE)
 
 
 def _check(symbols: torch.Tensor, dt) -> None:
@@ -57,38 +58,44 @@ def _cuda(symbols: torch.Tensor) -> bool:
     raise ValueError(f"unsupported device {symbols.device}")
 
 
-def count(symbols: torch.Tensor, dt, chunk: int):
-    """Per-chunk bit totals (int32[ceil(n/chunk)]) and stats (int64[2])."""
+def count(symbols: torch.Tensor, dt):
+    """Per-tile bit totals (int32[ceil(n / TILE)]) and stats (int64[2])."""
     _check(symbols, dt)
     if not _cuda(symbols):
-        return count_plain(symbols, dt, chunk)
+        return count_plain(symbols, dt)
     n = symbols.numel()
-    n_chunks = -(-n // chunk)
-    chunk_bits = torch.empty(n_chunks, dtype=torch.int32, device=symbols.device)
-    stats = torch.zeros(2, dtype=torch.int64, device=symbols.device)
-    stats[0] = n  # no unknown symbol yet; a fill, not a host copy
+    tile_bits = torch.empty(n_tiles(n), dtype=torch.int32, device=symbols.device)
+    # [n (no unknown symbol yet), 0] by two fills: setting an element from a
+    # Python int would copy it from pageable host memory and block the host
+    stats = torch.full((2,), n, dtype=torch.int64, device=symbols.device)
+    stats[1:].zero_()
     stream = torch.cuda.current_stream(symbols.device).cuda_stream
     err = _build.load().thc_encode_count(
-        symbols.device.index, symbols.data_ptr(), n, chunk, dt.lengths.data_ptr(),
-        chunk_bits.data_ptr(), stats.data_ptr(), stream,
+        symbols.device.index, symbols.data_ptr(), n, dt.lengths.data_ptr(),
+        tile_bits.data_ptr(), stats.data_ptr(), stream,
     )
     _build.check("thc_encode_count", err)
     launches["encode_count"] += 1
-    return chunk_bits, stats
+    return tile_bits, stats
 
 
-def count_plain(symbols: torch.Tensor, dt, chunk: int):
+def group_lengths(symbols: torch.Tensor, dt, group: int) -> torch.Tensor:
+    """Code lengths (int64) as rows of ``group`` symbols, zeros past n."""
+    n = symbols.numel()
+    rows = -(-n // group)
+    padded = torch.zeros(rows * group, dtype=torch.int64, device=symbols.device)
+    padded[:n] = dt.lengths.to(torch.int64)[symbols.to(torch.int64)]
+    return padded.view(rows, group)
+
+
+def count_plain(symbols: torch.Tensor, dt):
     """Plain version of :func:`count`."""
     n = symbols.numel()
-    n_chunks = -(-n // chunk)
-    lens = dt.lengths.to(torch.int64)[symbols.to(torch.int64)]
-    padded = torch.zeros(n_chunks * chunk, dtype=torch.int64, device=symbols.device)
-    padded[:n] = lens
-    chunk_bits = padded.view(n_chunks, chunk).sum(1).to(torch.int32)
+    grid = group_lengths(symbols, dt, TILE)
+    lens = grid.view(-1)[:n]
     pos = torch.arange(n, device=symbols.device)
     first_bad = torch.where(lens == 0, pos, n).min()
-    stats = torch.stack([first_bad, lens.max()])
-    return chunk_bits, stats
+    return grid.sum(1).to(torch.int32), torch.stack([first_bad, lens.max()])
 
 
 def pad_code(total_bits: int, eos_padding: int) -> tuple[int, int]:
@@ -102,51 +109,70 @@ def pad_code(total_bits: int, eos_padding: int) -> tuple[int, int]:
     return (low << (32 - pad_len)) & MASK32, pad_len
 
 
-def pack(symbols: torch.Tensor, dt, chunk: int, chunk_offs: torch.Tensor,
-         total_bits: int, eos_padding: int, n_words: int) -> torch.Tensor:
+def pack(symbols: torch.Tensor, dt, tile_offs: torch.Tensor, total_bits: int,
+         eos_padding: int, n_words: int, block_symbols: int | None = None,
+         out: torch.Tensor | None = None):
     """Pack the stream into int32[n_words] words (bit patterns of uint32).
 
-    ``chunk_offs`` (int64) is every chunk's exclusive starting bit;
-    ``total_bits`` is the stream's unpadded length; ``n_words`` must cover
-    the padded length.
+    ``tile_offs`` (int64) is every tile's first bit: the exclusive prefix of
+    :func:`count`'s totals, shifted by any bits the caller puts before the
+    stream (they stay zero here); ``total_bits`` is where the codes end and
+    the EOS pad code goes; ``n_words`` must cover the padded length. Every
+    word is written, zeros past the pad. ``out`` (int32[n_words]) takes the
+    words in place of a new tensor. Returns (words, block_offs): the first
+    bit of every ``block_symbols``-th symbol (int64[ceil(n / block_symbols)]),
+    or None without ``block_symbols``.
     """
     _check(symbols, dt)
     n = symbols.numel()
-    if chunk_offs.dtype != torch.int64 or chunk_offs.numel() != -(-n // chunk):
-        raise ValueError("chunk_offs must be int64[ceil(n / chunk)]")
+    if tile_offs.dtype != torch.int64 or tile_offs.numel() != n_tiles(n):
+        raise ValueError("tile_offs must be int64[ceil(n / TILE)]")
     if 32 * n_words < total_bits + pad_code(total_bits, eos_padding)[1]:
         raise ValueError("n_words does not cover the padded stream")
+    if block_symbols is not None and block_symbols < 1:
+        raise ValueError(f"block_symbols must be >= 1, got {block_symbols}")
+    if out is not None and (out.dtype != torch.int32 or out.shape != (n_words,)
+                            or not out.is_contiguous() or out.device != symbols.device):
+        raise ValueError("out must be a contiguous int32[n_words] tensor on the symbols' device")
     if not _cuda(symbols):
-        return pack_plain(symbols, dt, chunk, chunk_offs, total_bits, eos_padding, n_words)
-    chunk_offs = chunk_offs.contiguous()
-    words = torch.zeros(n_words, dtype=torch.int32, device=symbols.device)
+        words, block_offs = pack_plain(symbols, dt, tile_offs, total_bits, eos_padding,
+                                       n_words, block_symbols)
+        return (words if out is None else out.copy_(words)), block_offs
+    tile_offs = tile_offs.contiguous()
+    words = torch.empty(n_words, dtype=torch.int32, device=symbols.device) if out is None else out
+    block_offs = None
+    if block_symbols is not None:
+        block_offs = torch.empty(-(-n // block_symbols), dtype=torch.int64,
+                                 device=symbols.device)
     stream = torch.cuda.current_stream(symbols.device).cuda_stream
     err = _build.load().thc_encode_pack(
-        symbols.device.index, symbols.data_ptr(), n, chunk, dt.patterns.data_ptr(),
-        dt.lengths.data_ptr(), chunk_offs.data_ptr(), total_bits,
-        eos_padding & 0xFF, words.data_ptr(), n_words, stream,
+        symbols.device.index, symbols.data_ptr(), n, dt.patterns.data_ptr(),
+        dt.lengths.data_ptr(), tile_offs.data_ptr(), total_bits, eos_padding & 0xFF,
+        words.data_ptr(), n_words, block_symbols or 0,
+        None if block_offs is None else block_offs.data_ptr(), stream,
     )
     _build.check("thc_encode_pack", err)
     launches["encode_pack"] += 1
-    return words
+    return words, block_offs
 
 
-def pack_plain(symbols: torch.Tensor, dt, chunk: int, chunk_offs: torch.Tensor,
-               total_bits: int, eos_padding: int, n_words: int) -> torch.Tensor:
-    """Plain version of :func:`pack`: the port of the JAX package's
-    ``encode_block_kernel_indexed`` (ops/encode.py) — a gather, an int64
-    cumsum, a hi/lo split at the word boundary, and an int64 ``index_add_``
-    (codes never share bits, so adding is OR)."""
+def symbol_starts(symbols: torch.Tensor, dt, offs: torch.Tensor, group: int) -> torch.Tensor:
+    """Each symbol's first bit (int64): ``offs[i // group]`` plus the code
+    lengths before it in its group of ``group`` symbols."""
+    grid = group_lengths(symbols, dt, group)
+    return (offs[:, None] + torch.cumsum(grid, 1) - grid).reshape(-1)[: symbols.numel()]
+
+
+def place_codes(symbols: torch.Tensor, dt, starts: torch.Tensor, total_bits: int,
+                eos_padding: int, n_words: int) -> torch.Tensor:
+    """The int32[n_words] words of each symbol's code at its first bit
+    ``starts`` and the EOS pad code at ``total_bits``: a gather, a hi/lo
+    split at the word boundary, and an int64 ``index_add_`` (codes never
+    share bits, so adding is OR)."""
     dev = symbols.device
-    n = symbols.numel()
-    n_chunks = chunk_offs.numel()
     idx = symbols.to(torch.int64)
     lens = dt.lengths.to(torch.int64)[idx]
     pats = u32(dt.patterns)[idx]
-    padded = torch.zeros(n_chunks * chunk, dtype=torch.int64, device=dev)
-    padded[:n] = lens
-    grid = padded.view(n_chunks, chunk)
-    starts = (chunk_offs[:, None] + torch.cumsum(grid, 1) - grid).reshape(-1)[:n]
     p32 = torch.where(lens > 0, (pats << (32 - lens)) & MASK32, 0)
     pad_p32, _ = pad_code(total_bits, eos_padding)
     p32 = torch.cat([p32, torch.tensor([pad_p32], dtype=torch.int64, device=dev)])
@@ -161,3 +187,15 @@ def pack_plain(symbols: torch.Tensor, dt, chunk: int, chunk_offs: torch.Tensor,
     words.index_add_(0, widx, hi)
     words.index_add_(0, widx + 1, lo)
     return i32(words[:n_words])
+
+
+def pack_plain(symbols: torch.Tensor, dt, tile_offs: torch.Tensor, total_bits: int,
+               eos_padding: int, n_words: int, block_symbols: int | None = None):
+    """Plain version of :func:`pack`: the port of the JAX package's
+    ``encode_block_kernel_indexed`` (ops/encode.py): each symbol's first bit
+    from the tile offsets and an int64 cumsum, the codes placed by
+    :func:`place_codes`, and the block offsets sampled every
+    ``block_symbols`` symbols."""
+    starts = symbol_starts(symbols, dt, tile_offs, TILE)
+    words = place_codes(symbols, dt, starts, total_bits, eos_padding, n_words)
+    return words, None if block_symbols is None else starts[::block_symbols].clone()

@@ -39,7 +39,6 @@ import torch
 from .. import _build
 from ..ops import chain_decode, selfsync
 from ..ops.encode import DEFAULT_BLOCK_SYMBOLS, DeviceTable, _encode_device
-from ..ops.pack_encode import chunk_symbols
 from ..tables import load_static_test_table
 from . import card, check_equal, is_cuda, kernel_ms, median_ms, on_card, require_cuda
 from .pack_ablate import p5_inputs
@@ -155,10 +154,8 @@ def inputs(dev: torch.device, data=None, block_symbols: int = DEFAULT_BLOCK_SYMB
     data = p5_inputs() if data is None else data
     dt = DeviceTable.for_table(load_static_test_table(), dev)
     sym = torch.from_numpy(data).to(dev)
-    chunk = chunk_symbols(block_symbols)
-    words, _total, padded_bits, chunk_offs, _max = _encode_device(sym, dt, 0xFF, chunk)
+    words, _total, padded_bits, block_offs, _max = _encode_device(sym, dt, 0xFF, block_symbols)
     n = sym.numel()
-    block_offs = chunk_offs[:: block_symbols // chunk].contiguous()
     nb = block_offs.numel()
     nsyms = torch.full((nb,), block_symbols, dtype=torch.int32, device=dev)
     nsyms[-1] = n - (nb - 1) * block_symbols

@@ -11,10 +11,10 @@ and meaning, so a stream saved by one package continues in the other.
 
 Encoder. One ``encode_chunk`` call stages at most ``8 * capacity // min_len
 + 2`` symbols on the device (no more can fit), runs the count kernel, takes
-the chunks' int64 prefix with ``torch.cumsum``, finds the capacity cut (the
-chunk holding it from the prefix, the symbol from an exact cumsum over that
-chunk's <= 32 codes), reads the scalars back in one transfer and packs the
-consumed symbols behind the carry (``ops/pack_encode.py``): the chunk
+the tiles' int64 prefix with ``torch.cumsum``, finds the capacity cut (the
+tile holding it from the prefix, the symbol from an exact cumsum over that
+tile's <= 4096 codes), reads the scalars back in one transfer and packs the
+consumed symbols behind the carry (``ops/pack_encode.py``): the tile
 offsets move by the carry's length and the carry is OR-ed into word 0. A
 code that straddles the cut leaves its low bits as the next carry (the
 reference's ``overflow_bits``, huffman.c:88-99). Bit offsets are int64, so
@@ -44,20 +44,14 @@ import torch
 from .errors import ShortBufferError, UnknownSymbolError
 from .ops import pack_encode, selfsync
 from .ops.bitpack import MASK32, merge_words, slide_words, stage_words, words_to_bytes
-from .ops.encode import (
-    DEFAULT_BLOCK_SYMBOLS,
-    DEFAULT_EOS_PADDING,
-    DeviceTable,
-    resolve_device,
-    stage_bytes,
-)
+from .ops.encode import DEFAULT_EOS_PADDING, DeviceTable, resolve_device, stage_bytes
 from .tables import HuffmanTable
 
 # Retained streams of more unconsumed bytes than this take the self-sync
 # drains; smaller ones the sequential kernel (as in the JAX package).
 BULK_DECODE_THRESHOLD = 65536
 
-_CHUNK = pack_encode.chunk_symbols(DEFAULT_BLOCK_SYMBOLS)  # symbols per count chunk
+_TILE = pack_encode.TILE  # symbols per count tile
 
 
 @dataclasses.dataclass
@@ -181,9 +175,9 @@ class HuffmanEncoder:
         return EncodeResult(out, consumed, False)
 
     def _stage_and_cut(self, symbols: np.ndarray, writable: int | None):
-        """Stage the symbols, count their chunks, and find the capacity cut.
+        """Stage the symbols, count their tiles, and find the capacity cut.
 
-        Returns (symbols on the device, chunk offsets int64, total bits,
+        Returns (symbols on the device, tile offsets int64, total bits,
         cut) with cut = (consumed, bits of the consumed codes, straddle,
         over, carry pattern) in the frame without the carry, or None when
         uncapped. One host transfer brings back every scalar.
@@ -192,22 +186,22 @@ class HuffmanEncoder:
         dev = self.device
         dt = DeviceTable.for_table(self.table, dev)
         sym = stage_bytes(symbols, dev)
-        chunk_bits, stats = pack_encode.count(sym, dt, _CHUNK)
-        incl = torch.cumsum(chunk_bits, 0, dtype=torch.int64)
+        tile_bits, stats = pack_encode.count(sym, dt)
+        incl = torch.cumsum(tile_bits, 0, dtype=torch.int64)
         scalars = [stats[0], incl[-1]]
         if writable is not None:
             wbp = writable - self._carry_len  # the cut in the frame without the carry
-            # the first chunk that ends past the cut, and its codes' ends
+            # the first tile that ends past the cut, and its codes' ends
             j = (incl <= wbp).sum().clamp(max=incl.numel() - 1)
-            idx = j * _CHUNK + torch.arange(_CHUNK, device=dev)
+            idx = j * _TILE + torch.arange(_TILE, device=dev)
             valid = idx < n
             sym_j = sym[idx.clamp(max=n - 1)].to(torch.int64)
             lens_j = torch.where(valid, dt.lengths[sym_j].to(torch.int64), 0)
-            ends = incl[j] - chunk_bits[j] + torch.cumsum(lens_j, 0)
-            k_w = ((ends <= wbp) & valid).sum()  # codes of chunk j that fit whole
-            kc = k_w.clamp(max=_CHUNK - 1)
-            start_k = torch.where(k_w > 0, ends[(k_w - 1).clamp(min=0)], incl[j] - chunk_bits[j])
-            consumed = j * _CHUNK + k_w
+            ends = incl[j] - tile_bits[j] + torch.cumsum(lens_j, 0)
+            k_w = ((ends <= wbp) & valid).sum()  # codes of tile j that fit whole
+            kc = k_w.clamp(max=_TILE - 1)
+            start_k = torch.where(k_w > 0, ends[(k_w - 1).clamp(min=0)], incl[j] - tile_bits[j])
+            consumed = j * _TILE + k_w
             straddle = (consumed < n) & (start_k < wbp)
             over = torch.where(straddle, ends[kc] - wbp, 0)
             pattern = (dt.patterns[sym_j[kc]].to(torch.int64) & MASK32) & (
@@ -220,11 +214,11 @@ class HuffmanEncoder:
         if first_bad < n:
             raise UnknownSymbolError(index=first_bad, symbol=int(symbols[first_bad]))
         cut = None if writable is None else (vals[2], vals[3], bool(vals[4]), vals[5], vals[6])
-        return sym, incl - chunk_bits, total, cut
+        return sym, incl - tile_bits, total, cut
 
     def _pack(self, sym, offs, n: int, total_bits: int, eos_padding: int) -> bytes:
         """The carry, then the first ``n`` staged symbols (``sym``, with
-        their chunks' offsets ``offs``), padded with the low bits of
+        their tiles' offsets ``offs``), padded with the low bits of
         ``eos_padding`` to a whole byte; ``total_bits`` counts the carry."""
         carry_pat, carry_len = self._carry_pattern, self._carry_len
         if n == 0:  # the carry alone
@@ -232,11 +226,11 @@ class HuffmanEncoder:
             pad_len = 8 * nbytes - carry_len
             value = (carry_pat << pad_len) | (eos_padding & ((1 << pad_len) - 1))
             return value.to_bytes(nbytes, "big")
-        sym, offs = sym[:n], offs[: -(-n // _CHUNK)] + carry_len
+        sym, offs = sym[:n], offs[: pack_encode.n_tiles(n)] + carry_len
         dt = DeviceTable.for_table(self.table, self.device)
         pad_len = pack_encode.pad_code(total_bits, eos_padding)[1]
-        words = pack_encode.pack(sym, dt, _CHUNK, offs, total_bits, eos_padding & 0xFF,
-                                 -(-(total_bits + pad_len) // 32))
+        words, _ = pack_encode.pack(sym, dt, offs, total_bits, eos_padding & 0xFF,
+                                    -(-(total_bits + pad_len) // 32))
         if carry_len:
             words[:1] |= _i32((carry_pat << (32 - carry_len)) & MASK32)
         return words_to_bytes(words)[: -(-total_bits // 8)].cpu().numpy().tobytes()

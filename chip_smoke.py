@@ -31,8 +31,18 @@ Phases (any failure raises and the script exits non-zero):
        sides before the comparison); the stitched body and tail start
        equal the fixpoint's (the random-byte stream, whose true chain meets
        invalid windows, stays unresolved);
-     - stream_decode at 4 KiB: no cap, a cap mid-stream (OUTPUT_FULL), and
-       a zero blob (UNKNOWN_SYMBOL);
+     - stream_decode (one block walking the stream in shared-memory
+       windows) against both plain versions, the blocked one (symbols, n,
+       end bit, status and the windows and sync rounds) and the serial one:
+       the 8 MiB stream's 191-symbol tail and 2, 16 and 64 KiB walks on the
+       static and HPACK tables; caps at 0, 1, a slice boundary, a window
+       boundary, n - 1, n and n + 1; into an output filled with junk; a
+       corrupt word in the third window (UNKNOWN_SYMBOL); a zero blob; a
+       256 x 8-bit table from bit 3 (no slice ever resynchronises: the
+       rounds stay within the slices); phase 8 adds a capped walk started
+       past bit 2^31; beside each, the probe's block walk counts the
+       re-walks by branch (joined from the old record, the old starts, a
+       walk of the suffix), and every branch must have run;
   3. the golden vectors through the public encode/encode_with_index and
      decode; an unknown symbol raising with the right index on encode and
      zeros raising on decode (from the fixpoint fallback); max_output giving
@@ -56,7 +66,11 @@ Phases (any failure raises and the script exits non-zero):
      forms with their bounds, each redesigned decode form (chain_decode, the
      full pass, the patch) beside the same loop with one store a symbol and
      with none (prof.decode_ablate, prof.kernel_ms), the stitch's torch ops
-     by torch.profiler, the
+     by torch.profiler, stream_decode alone at each of decode_ablate's
+     walks (7 and 64 bytes, the tail, 2, 16 and 64 KiB, a capped walk of
+     2^20 symbols) beside the probe's one-thread `serial` design, an empty
+     block and its bound; a one-shot decode of 2 KiB to 1 MiB through the
+     walk and through the self-sync path (wall and device busy); the
      device time of one decode by kernel, the host syncs of one decode
      (torch.cuda.set_sync_debug_mode), and the public calls end to end from
      host bytes, in GB/s of plaintext;
@@ -71,14 +85,18 @@ Phases (any failure raises and the script exits non-zero):
      of each loop, the median ms per call of the first and
      last eight calls of each loop, and 64 MiB / (t_enc + t_dec) in GB/s;
      then selfsync_decode with starts against its plain version and timed
-     at one drain call's shape;
+     at one drain call's shape; then 4 MiB at 16 KiB chunks (HTTP/2's
+     default frame size), every fed call one stream_decode launch: the
+     median wall and device busy of a call and 4 MiB / (t_enc + t_dec);
   7. the protocol on the card: a 256 KiB stream at 4 KiB chunks, the
      decoder's threshold lowered so that the self-sync words drains run;
      every call's result, overflow_bits, leftover_bits and state equal
      those on device="cpu"; the stitch outcomes on the card printed;
   8. C2: one uncapped encode_chunk of a stream just past 2^31 bits: no
      segmenting (one pack launch), bytes equal tt.encode's, tt.decode gives
-     the input back;
+     the input back; capped stream_decode walks from the first code start
+     past bit 2^31 and from 4096 codes before it, against both plain
+     versions and the input;
   9. HPACK: 1000 header strings, each a fresh stream encoded with
      eos_padding 0xFF and decoded in 7-byte pieces, padding all ones; the
      median us per string;
@@ -91,7 +109,10 @@ Phases (any failure raises and the script exits non-zero):
      the tile loop at chunks 32 and 4, and the tile loop, both against
      encode_pack's words), and
      every decode_ablate mode and block size (the decode loops' stores
-     swapped: the question of scripts/prof/prof_decode_parts.py),
+     swapped: the question of scripts/prof/prof_decode_parts.py; its
+     stream case: the block walk with the LUT in shared memory or read
+     through the cache, without its write pass, at each window shape, and
+     the one-thread serial loop, at each walk),
      each bit-identical to its plain version at the script's shape and
      seed and at every shape, round count and block size it is timed at;
      then timed where they fill the card, the dependent-step
@@ -592,7 +613,9 @@ def phase_c2(torch, tt, table, counters, dev, limit_bits: int = 1 << 31) -> None
     """One uncapped encode_chunk whose stream is just past 2^31 bits (the
     JAX package's fault C2 range, for limit_bits 2^31): no segmenting, one
     pack launch, bytes equal tt.encode's, and tt.decode gives the input
-    back."""
+    back; then capped stream_decode walks from the first code start at or
+    past limit_bits and from 4096 codes before it (across it, to the end),
+    against both plain versions and the input."""
     from tpu_huffman_torch.ops import pack_encode
     from tpu_huffman_torch.ops.encode import DeviceTable
 
@@ -604,6 +627,10 @@ def phase_c2(torch, tt, table, counters, dev, limit_bits: int = 1 << 31) -> None
     hi = limit_bits + 30
     k = int(torch.searchsorted(cum, torch.tensor([hi], device=dev), right=True))
     total = int(cum[k - 1])
+    # stream_decode walks from the first code start at or past limit_bits
+    # (symbol j + 1 starts where symbol j ends) and from 4096 codes before it
+    j = int(torch.searchsorted(cum, torch.tensor([limit_bits], device=dev)))
+    walks = [(int(cum[j]), j + 1, 1), (int(cum[j - 4097]), j - 4096, 8192)]
     del cum
     if not limit_bits - 1 < total <= hi:
         raise AssertionError(f"C2 input: {total} bits outside ({limit_bits} - 1, {hi}]")
@@ -620,6 +647,20 @@ def phase_c2(torch, tt, table, counters, dev, limit_bits: int = 1 << 31) -> None
         raise AssertionError("C2 encode differs from tt.encode")
     if tt.decode(r.data, table, device=dev) != src.tobytes():
         raise AssertionError("C2 stream does not decode to the input")
+    from tpu_huffman_torch.ops import stream_decode
+    from tpu_huffman_torch.ops.bitpack import stage_words
+
+    words = stage_words(torch.frombuffer(bytearray(r.data), dtype=torch.uint8).to(dev))
+    for walk_start, first, cap in walks:
+        _e, info, _st, _t = stream_case(torch, stream_decode,
+                                        f"phase 8's stream from bit {walk_start}, cap {cap}",
+                                        words, walk_start, total, cap, dt, phase=8)
+        n = info[0]
+        syms = stream_decode.decode_stream(words, walk_start, total, cap, dt)[0][:n]
+        if n != min(cap, k - first) or (
+                syms.cpu().numpy().tobytes() != src[first:first + n].tobytes()):
+            raise AssertionError(f"C2: the walk from bit {walk_start} differs from the input")
+    del words
     print(f"phase 8 C2: encode_chunk of {k} symbols, {total} bits ({limit_bits} + "
           f"{total - limit_bits}), "
           f"one pack launch, {secs * 1e3:.1f} ms; equals tt.encode and decodes to the input")
@@ -701,6 +742,304 @@ def phase_store_design(torch, selfsync, chain_decode, chain_args, stitch_forms,
     return t
 
 
+def stream_case(torch, stream_decode, label, words, start_bit, total_bits, cap, dt,
+                serial: bool = True, out=None, want_status=None, phase: int = 2,
+                shape=None, branches=None) -> tuple:
+    """stream_decode (the kernel, at `shape` = (window_words, sub_bits) or
+    the wrapper's for this walk, with stats) against the blocked plain
+    version at the same shape (symbols[:n], n, end_bit, status and stats)
+    and, with `serial`, against decode_stream_plain (symbols[:n], n,
+    end_bit, status), run on copies on the CPU, where its one small op a
+    step is quicker. With `branches` ({overlap: int64[4]}), the probe's
+    block walk at the same shape and each overlap, equal to the blocked
+    plain version at that overlap, adds its re-walks by branch to the
+    overlap's counters. Returns (the max abs err, (n, end_bit, status),
+    stats, threads)."""
+    from tpu_huffman_torch.ops.encode import DeviceTable
+    from tpu_huffman_torch.prof import decode_ablate, max_abs_err
+
+    walk = stream_decode.walk_bits(start_bit, total_bits, cap, dt)
+    ww, sub = shape or stream_decode.card_shape(walk, dt)
+    threads = stream_decode.geometry(ww, sub)
+    st_k = torch.full((2,), JUNK, dtype=torch.int64, device=words.device)
+    st_p = torch.zeros_like(st_k)
+    if shape is None:
+        got = stream_decode.decode_stream(words, start_bit, total_bits, cap, dt, out=out,
+                                          stats=st_k)
+    else:
+        got = stream_decode._launch(words, start_bit, total_bits, cap, dt, ww, sub, out=out,
+                                    stats=st_k)
+    wants = [stream_decode.decode_stream_blocked_plain(
+        words, start_bit, total_bits, cap, dt, window_words=ww, sub_bits=sub, stats=st_p)]
+    if serial:
+        cpu = torch.device("cpu")
+        wants.append([x.to(words.device) for x in stream_decode.decode_stream_plain(
+            words.cpu(), start_bit, total_bits, cap, DeviceTable.for_table(dt.table, cpu))])
+    probes = []
+    for overlap, counts in (branches or {}).items():
+        args = (words, start_bit, total_bits, cap, dt)
+        probes.append((decode_ablate.stream_ablate(*args, "block", threads, sub,
+                                                   overlap=overlap, branches=counts),
+                       decode_ablate.stream_ablate_plain(*args, "block", threads, sub,
+                                                         overlap=overlap)))
+    torch.cuda.synchronize()
+    n = int(got[1][0])
+    e = max_abs_err(st_k, st_p)
+    for want in wants:
+        e = max(e, max_abs_err(got[1], want[1]), max_abs_err(got[0][:n], want[0][:n]))
+    for probe, want in probes:
+        n_p = int(want[1][0])
+        e = max(e, max_abs_err(probe[1], want[1]), max_abs_err(probe[0][:n_p], want[0][:n_p]))
+    info = tuple(got[1].tolist())
+    if e or (want_status is not None and info[2] != want_status):
+        raise AssertionError(f"stream_decode {label}: max_abs_err {e}, info {info}, "
+                             f"want status {want_status}")
+    print(f"phase {phase} stream_decode {label}: max_abs_err {e} against the blocked plain version"
+          + (" and the serial one" if serial else "") + f" ({info[0]} symbols, end bit "
+          f"{info[1]}, status {info[2]}; {threads} threads x {sub} bits, windows and most "
+          f"sync rounds "
+          f"{tuple(st_k.tolist())})")
+    return e, info, tuple(st_k.tolist()), threads
+
+
+def phase_stream_checks(torch, tt, dev, data8: bytes, enc_static: bytes) -> int:
+    """stream_decode against both plain versions on the walks of the main
+    paths and on each stop rule: the 8 MiB stream's tail, 2, 16 and 64 KiB
+    walks on the static and HPACK tables; caps at 0, 1, a slice boundary, a
+    window boundary, n - 1, n and n + 1; a zero blob; a corrupt word in the
+    third window; a 256 x 8-bit table (codes that never resynchronise) from
+    a misaligned start; into an output filled with junk. Beside every case
+    the probe's block walk, at the kernel's overlap and at 0, counts the
+    re-walks by branch; each branch must run. Returns the max abs err (0)."""
+    import functools
+
+    from tpu_huffman_torch.ops import stream_decode
+    from tpu_huffman_torch.ops.bitpack import stage_words
+    from tpu_huffman_torch.ops.encode import DeviceTable
+    from tpu_huffman_torch.prof import decode_ablate
+
+    def on_card(b: bytes):
+        return stage_words(torch.frombuffer(bytearray(b), dtype=torch.uint8).to(dev))
+
+    # re-walks by branch from the probe's block walk beside every case, at the
+    # kernel's overlap and at 0 (every slice enters at its first bit)
+    branches = {ov: torch.zeros(len(decode_ablate.BRANCHES), dtype=torch.int64, device=dev)
+                for ov in (stream_decode.OVERLAP_BITS, 0)}
+    case = functools.partial(stream_case, branches=branches)
+    err = 0
+    shape = (2048, 128)  # for the caps and the corrupt word: 512 slices a window
+    sub = shape[1]
+    data_np = np.frombuffer(data8, np.uint8)
+    for name, table, enc in (("static", tt.load_static_test_table(), enc_static),
+                             ("hpack", tt.load_hpack_table(),
+                              tt.encode(data8[:MIB], tt.load_hpack_table(), device=dev))):
+        dt = DeviceTable.for_table(table, dev)
+        words = on_card(enc)
+        bits = 8 * len(enc)
+        lens = table.lengths[data_np[: 1 << 20]].astype(np.int64)
+        starts = np.concatenate([[0], np.cumsum(lens)])  # code starts, from bit 0
+        n_all = len(data8) if name == "static" else MIB
+        tail = n_all - 191
+        tail_bit = int(table.lengths[data_np[:tail]].astype(np.int64).sum())
+        walks = {"tail": (tail_bit, bits, None)}
+        for kib in (2, 16, 64):
+            walks[f"{kib} KiB"] = (0, 8 * 1024 * kib, None)
+        for label, (a, b, cap) in walks.items():
+            err = max(err, case(torch, stream_decode, f"{name} {label}", words, a, b, cap,
+                                       dt)[0])
+        # caps on the 16 KiB walk at `shape`: the first symbol of slice 5 and
+        # of window 1 are the counts of code starts before 5 * sub and W * 32
+        total = 8 * 16 * 1024
+        n16 = int(np.searchsorted(starts, total, side="right")) - 1  # codes ending by `total`
+        caps = {"0": 0, "1": 1, "slice boundary": int(np.searchsorted(starts, 5 * sub)),
+                "window boundary": int(np.searchsorted(starts, 32 * shape[0]))}
+        _e, info, _st, _t = case(torch, stream_decode, f"{name} 16 KiB uncapped", words,
+                                        0, total, None, dt, serial=False, shape=shape)
+        n = info[0]
+        caps.update({"n - 1": n - 1, "n": n, "n + 1": n + 1})
+        for label, cap in caps.items():
+            full = cap < n
+            err = max(err, stream_case(
+                torch, stream_decode, f"{name} 16 KiB cap {label} ({cap}), 512 x 128", words, 0,
+                total, cap, dt, want_status=stream_decode.STATUS_OUTPUT_FULL if full else None,
+                shape=shape)[0])
+        if n != n16:
+            raise AssertionError(f"{name} 16 KiB walk: {n} symbols, the plaintext has {n16}")
+        # into an output filled with junk: [:n] is all written
+        m = stream_decode.out_size(dt, 0, total, None)
+        junk = torch.full((m + 16,), 0xAB, dtype=torch.uint8, device=dev)
+        err = max(err, case(torch, stream_decode, f"{name} 16 KiB into junk", words, 0,
+                                   total, None, dt, out=junk[3:])[0])
+        if name == "static":
+            # a corrupt word in the third window of a 64 KiB walk at `shape`
+            bad = words.clone()
+            bad[2 * shape[0] + 100] = 0
+            err = max(err, stream_case(
+                torch, stream_decode, f"{name} 64 KiB, word {2 * shape[0] + 100} zeroed (window "
+                f"3 of 512 x 128)", bad, 0, 8 * 65536, None, dt,
+                want_status=stream_decode.STATUS_UNKNOWN_SYMBOL, shape=shape)[0])
+            err = max(err, case(torch, stream_decode, "static zero blob, 4 KiB",
+                                       on_card(bytes(4096)), 0, 8 * 4096, None, dt,
+                                       want_status=stream_decode.STATUS_UNKNOWN_SYMBOL)[0])
+    flat = tt.make_canonical({i: 8 for i in range(256)}, name="flat8")
+    fdt = DeviceTable.for_table(flat, dev)
+    fwords = on_card(tt.encode(data8[:16384], flat, device=dev))
+    e, _info, st, threads = case(torch, stream_decode, "256 x 8-bit table from bit 3",
+                                        fwords, 3, 8 * 16384, None, fdt)
+    if st[1] > threads:
+        raise AssertionError(f"flat8: {st[1]} sync rounds, more than the {threads} slices")
+    counts = {ov: dict(zip(decode_ablate.BRANCHES, c.tolist())) for ov, c in branches.items()}
+    print(f"phase 2 stream_decode re-walks by branch over these cases (the probe's block walk, "
+          f"each launch equal to the blocked plain version), by overlap: {counts}")
+    for name in decode_ablate.BRANCHES:
+        if not any(c[name] for c in counts.values()):
+            raise AssertionError(f"stream_decode re-walk branch {name!r} never ran in phase 2")
+    return max(err, e)
+
+
+def _once_ms(torch, fn) -> tuple:
+    """(ms, result) of one fn() call timed by CUDA events: for plain
+    versions too slow for median_ms's 56 calls."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = fn()
+    stop.record()
+    stop.synchronize()
+    return start.elapsed_time(stop), got
+
+
+def phase_stream_timing(torch, dev) -> dict:
+    """stream_decode alone (prof.kernel_ms) at each walk of
+    decode_ablate.STREAM_WALKS on the 8 MiB static stream (7 and 64 bytes,
+    the 191-symbol tail, 2, 16 and 64 KiB, a capped walk of 2^20 symbols),
+    beside the probe's `serial` mode (the one-thread design it replaced),
+    the blocked plain version (one call), its bound, and an empty block of
+    the same threads (the floor of one launch). Returns {walk: row}."""
+    import functools
+
+    from tpu_huffman_torch.ops import stream_decode
+    from tpu_huffman_torch.prof import decode_ablate, kernel_ms, max_abs_err
+
+    rows = {}
+    for walk, args in decode_ablate.stream_walks(dev).items():
+        words, start, total, cap, dt = args
+        ww, sub = stream_decode.card_shape(stream_decode.walk_bits(start, total, cap, dt), dt)
+        threads = stream_decode.geometry(ww, sub)
+        got = stream_decode.decode_stream(*args)
+        n, end, status = got[1].tolist()
+        plain = functools.partial(stream_decode.decode_stream_blocked_plain, *args,
+                                  window_words=ww, sub_bits=sub)
+        plain_ms, want = _once_ms(torch, plain)
+        e = max(max_abs_err(got[1], want[1]), max_abs_err(got[0][:n], want[0][:n]))
+        if e:
+            raise AssertionError(f"stream_decode {walk}: differs from the blocked plain version")
+        t = kernel_ms({"kernel": functools.partial(stream_decode.decode_stream, *args),
+                       "serial": functools.partial(decode_ablate.stream_ablate, *args, "serial"),
+                       "empty": functools.partial(decode_ablate.empty_block, dev, threads)})
+        nbytes = 4 * (end // 32 - start // 32 + 2) + n + 24 + 4 * dt.l0.numel()
+        bound_ms, bound_by = _bound(nbytes, OPS_PER_SYMBOL["stream_decode"] * n)
+        rows[walk] = {"symbols": n, "bits": end - start, "status": status, "threads": threads,
+                      "sub_bits": sub, "ms": t["kernel"],
+                      "serial_ms": t["serial"], "empty_ms": t["empty"], "plain_ms": plain_ms,
+                      "bound_ms": bound_ms, "bound_by": bound_by, "max_abs_err": e}
+        r = rows[walk]
+        print(f"phase 5 stream_decode {walk} ({n} symbols, {end - start} bits, {threads} "
+              f"threads x {sub} bits): kernel alone {r['ms']:.4f} ms, serial (the "
+              f"one-thread design) {r['serial_ms']:.4f} ms ({r['serial_ms'] / r['ms']:.1f}x), "
+              f"empty block "
+              f"{r['empty_ms']:.4f} ms (prof.kernel_ms), bound {bound_ms:.7f} ms by {bound_by}, "
+              f"blocked plain {r['plain_ms']:.2f} ms (one call)")
+    return rows
+
+
+def phase_stream_crossover(torch, tt, table, dev, sizes=(2, 16, 64, 256, 1024)) -> dict:
+    """Where stream_decode's walk and the self-sync path cross: a one-shot
+    decode of the same stream (KiB of plaintext from default_rng(SEED) on
+    the static table) through decode(max_output) (the walk, any size) and
+    through selfsync.selfsync_decode (the stitch plus the walk of the
+    tail), each the median host wall of REPS calls and its device busy by
+    torch.profiler. Returns {KiB: {path: (wall ms, busy ms)}}."""
+    from tpu_huffman_torch.ops import selfsync
+
+    data = np.random.default_rng(SEED).integers(0, 256, size=max(sizes) * 1024,
+                                                dtype=np.uint8).tobytes()
+    res = {}
+    for kib in sizes:
+        plain_bytes = data[:kib * 1024]
+        enc = tt.encode(plain_bytes, table, device=dev)
+        paths = {"walk": lambda: tt.decode(enc, table, max_output=len(plain_bytes), device=dev),
+                 "self-sync": lambda: selfsync.selfsync_decode(enc, table, device=dev)}
+        res[kib] = {}
+        for name, fn in paths.items():
+            if fn() != plain_bytes:
+                raise AssertionError(f"crossover {kib} KiB: the {name} path differs from the input")
+            res[kib][name] = (_median_wall_ms(torch, fn),
+                              sum(_device_ms_by_kernel(torch, fn).values()))
+        print(f"phase 5 one-shot decode of {kib} KiB ({len(enc)} stream bytes): "
+              + ", ".join(f"{k} {w:.3f} ms wall, {b:.4f} ms device busy"
+                          for k, (w, b) in res[kib].items()))
+    return res
+
+
+def phase_streaming_small(torch, tt, table, counters, dev, n: int = 4 * MIB,
+                          chunk: int = 16 * 1024) -> dict:
+    """An HTTP/2-sized streaming run: n bytes (seed 13) through a capped
+    HuffmanEncoder loop at `chunk` bytes, then a HuffmanDecoder fed the
+    stream in `chunk`-byte pieces, every drain through stream_decode
+    (retained bytes stay under stream.BULK_DECODE_THRESHOLD); the median
+    wall and device busy of a fed call, and n / (t_enc + t_dec)."""
+    from tpu_huffman_torch.ops import selfsync, stream_decode
+
+    data = np.random.default_rng(13).integers(0, 256, size=n, dtype=np.uint8).tobytes()
+
+    def encode_loop():
+        enc = tt.HuffmanEncoder(table, device=dev)
+        view, parts = memoryview(data), []
+        while True:
+            r = enc.encode_chunk(view, chunk)
+            parts.append(r.data)
+            view = view[r.consumed:]
+            if r.done:
+                return b"".join(parts)
+
+    def feed_loop(encoded):
+        dec = tt.HuffmanDecoder(table, device=dev)
+        out, times = [], []
+        for i in range(0, len(encoded), chunk):
+            t0 = time.perf_counter()
+            out.append(dec.decode_chunk(encoded[i:i + chunk]).data)
+            times.append(time.perf_counter() - t0)
+        return b"".join(out), times
+
+    feed_loop(encode_loop()[: 8 * chunk])  # warm-up
+    _reset(*counters)
+    t0 = time.perf_counter()
+    encoded = encode_loop()
+    t_enc = time.perf_counter() - t0
+    _reset(*counters, selfsync.outcomes)
+    t0 = time.perf_counter()
+    out, times = feed_loop(encoded)
+    t_dec = time.perf_counter() - t0
+    launched = {k: v for c in counters for k, v in c.items() if v}
+    if out != data:
+        raise AssertionError("16 KiB streaming decode differs from the input")
+    calls = len(times)
+    if stream_decode.launches["stream_decode"] != calls or selfsync.launches["selfsync_decode"]:
+        raise AssertionError(f"16 KiB streaming: {calls} fed calls, launches {launched}")
+    piece = encoded[:chunk]
+    busy = sum(_device_ms_by_kernel(torch, lambda: tt.HuffmanDecoder(
+        table, device=dev).decode_chunk(piece)).values())
+    res = {"calls": calls, "median_ms": statistics.median(times) * 1e3, "busy_ms": busy,
+           "gbs": n / (t_enc + t_dec) / 1e9, "t_enc_ms": t_enc * 1e3, "t_dec_ms": t_dec * 1e3}
+    print(f"phase 6 streaming at {chunk}-byte chunks, {n} bytes: {calls} fed decode_chunk calls, "
+          f"each one stream_decode launch ({launched}); median {res['median_ms']:.3f} ms wall a "
+          f"call, device busy {busy:.4f} ms a call (torch.profiler, one fresh decoder fed one "
+          f"piece); encode {res['t_enc_ms']:.1f} ms, decode {res['t_dec_ms']:.1f} ms, "
+          f"{n} / (t_enc + t_dec) = {res['gbs']:.4f} GB/s")
+    return res
+
+
 def phase_probes(torch, dev) -> list:
     """The probes' entry points (each module's run()) with the launch
     counters reset just before and read just after; the library
@@ -761,6 +1100,15 @@ def phase_probes(torch, dev) -> list:
               + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items())
               + (f"; byte includes the {dec['fill_ms'][case]:.4f} ms fill of its rows"
                  if case != "chain" else ""))
+    st = dec["stream"]
+    for walk, t in st["ms"].items():
+        print(f"phase 10 decode_ablate stream {walk} ({st['symbols'][walk]} symbols, "
+              f"shape {st['shape'][walk]} (threads x bits a slice), windows and most sync rounds "
+              f"{st['stats'][walk]}, clock cycles in staging, speculation, sync rounds, scan + "
+              f"write + copy {st['cycles'][walk]}, re-walks {st['branches'][walk]}): "
+              + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()))
+    print("phase 10 decode_ablate empty block: " + ", ".join(
+        f"{t} threads {ms:.4f} ms" for t, ms in st["empty_ms"].items()))
 
     # library yardsticks, timed here only: chained torch.take (P2's chain
     # at the fill shape), R torch.take of the packed wide entry, and the
@@ -867,7 +1215,10 @@ def phase_probes(torch, dev) -> list:
          "timed": f"chain case, sector mode (chain_decode's loop), {dec['symbols']['chain']} "
                   f"symbols at block {decode_ablate.BLOCK}",
          "work": (dec["chain_bytes"], OPS_PER_SYMBOL["chain_decode"] * dec["symbols"]["chain"]),
-         "cases_ms": dec["cases"], "byte_fill_ms": dec["fill_ms"]},
+         "cases_ms": dec["cases"], "byte_fill_ms": dec["fill_ms"],
+         "stream_ms": dec["stream"]["ms"], "stream_stats": dec["stream"]["stats"],
+         "stream_cycles": dec["stream"]["cycles"],
+         "empty_block_ms": dec["stream"]["empty_ms"]},
     ]
     # each run() held every launch it timed against its plain version
     errs = {k: v for r in res.values() for k, v in r["max_abs_err"].items()}
@@ -1061,24 +1412,7 @@ def main() -> int:
         stitch_shapes[name] = calls
         foreign[name] = (dt, words, n_segs, seg_bits, max_syms, entries, len(enc))
 
-    # stream_decode at 4 KiB: each stop rule.
-    dt = DeviceTable.for_table(static, dev)
-    head = on_card(enc_static[:4096])
-    for label, words, cap, want_status in (
-        ("no cap", head, None, stream_decode.STATUS_OK),
-        ("cap 1000", head, 1000, stream_decode.STATUS_OUTPUT_FULL),
-        ("zero blob", on_card(bytes(4096)), None, stream_decode.STATUS_UNKNOWN_SYMBOL),
-    ):
-        got = stream_decode.decode_stream(words, 0, 8 * 4096, cap, dt)
-        want = stream_decode.decode_stream_plain(words, 0, 8 * 4096, cap, dt)
-        torch.cuda.synchronize()
-        e = max(max_abs_err(a, b) for a, b in zip(got, want))
-        errs["stream_decode"] = max(errs["stream_decode"], e)
-        n_dec, end_bit, status = got[1].tolist()
-        if status != want_status or got[0][:n_dec].cpu().numpy().tobytes() != data8[:n_dec]:
-            raise AssertionError(f"stream_decode {label}: status {status}, {n_dec} symbols")
-        print(f"phase 2 stream_decode {label}: max_abs_err {e} ({n_dec} symbols, "
-              f"end bit {end_bit}, status {status})")
+    errs["stream_decode"] = phase_stream_checks(torch, tt, dev, data8, enc_static)
     errs["selfsync_decode"] = max(errs["selfsync_decode"], *stitch_errs.values())
     if any(errs.values()):
         raise AssertionError(f"kernels differ from their plain versions: {errs}, stitch forms "
@@ -1320,6 +1654,8 @@ def main() -> int:
               + (f"{alone:.4f}" if alone is not None else "not measured")
               + f"), plain {p1:.4f} / {p2:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
               f"({forms[form]['lanes']} lanes, {forms[form]['symbols']} symbols)")
+    stream_walks = phase_stream_timing(torch, dev)
+    crossover = phase_stream_crossover(torch, tt, static, dev)
     forms["store_design_ms"] = phase_store_design(
         torch, selfsync, chain_decode, (words, block_offs, nsyms, out_start, n, dt),
         stitch_shapes["static"], {"chain_decode": kernel_only.get("chain_decode"),
@@ -1397,6 +1733,7 @@ def main() -> int:
     # ---- 6-9. streaming, the protocol on the card, C2, HPACK ---------------
     counters = (pack_encode.launches, selfsync.launches, stream_decode.launches)
     streaming = phase_streaming(torch, tt, static, counters, dev)
+    streaming_small = phase_streaming_small(torch, tt, static, counters, dev)
 
     # selfsync_decode with starts at the capped drain's shape: the prefix of
     # (capacity + 1) * max_len + 64 bits that one 1 MiB drain call decodes
@@ -1466,7 +1803,9 @@ def main() -> int:
          "starts": starts_ms, "stitch_forms": forms},
         {"name": "stream_decode", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/stream_decode.cu",
-         "replaces": "tpu_huffman/ops/decode.py:107"},
+         "replaces": "tpu_huffman/ops/decode.py:107", "walks": stream_walks,
+         "walk_vs_selfsync_ms": crossover,
+         "streaming_16k": streaming_small},
     ]
     for k in kernels:
         bound_ms, bound_by = _bound(*work[k["name"]])

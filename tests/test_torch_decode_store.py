@@ -2,9 +2,9 @@
 versions: the indexed decode at block sizes whose lane spans are not
 16-byte aligned, the self-sync rows' contract (a live lane writes its whole
 row, so the rows need no fill), and the ablation probe's plain versions
-(``tpu_huffman_torch.prof.decode_ablate``). The kernels themselves run only
-on a CUDA card (chip_smoke.py phases 2, 5 and 10). Every comparison is
-exact.
+(``tpu_huffman_torch.prof.decode_ablate``), its stream case included. The
+kernels themselves run only on a CUDA card (chip_smoke.py phases 2, 5 and
+10). Every comparison is exact.
 """
 
 import numpy as np
@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 
 import tpu_huffman as th  # noqa: E402
 import tpu_huffman_torch as tt  # noqa: E402
-from tpu_huffman_torch.ops import chain_decode, selfsync  # noqa: E402
+from tpu_huffman_torch.ops import chain_decode, selfsync, stream_decode  # noqa: E402
 from tpu_huffman_torch.ops.bitpack import stage_words  # noqa: E402
 from tpu_huffman_torch.ops.encode import DeviceTable  # noqa: E402
 from tpu_huffman_torch.prof import decode_ablate  # noqa: E402
@@ -166,6 +166,38 @@ def test_ablate_arguments_checked(ablate_cases):
         fn(*args[:3], 10, args[4], "sector", max_codes=11)
 
 
+@pytest.fixture(scope="module")
+def stream_walks():
+    return decode_ablate.stream_walks(CPU, np.frombuffer(_random(1500, 22), np.uint8).copy())
+
+
+@pytest.mark.parametrize("mode", decode_ablate.STREAM_MODES)
+@pytest.mark.parametrize("walk", list(decode_ablate.STREAM_WALKS))
+def test_stream_ablate_plain_equals_decode_stream(stream_walks, walk, mode):
+    """Every stream mode's plain version at every walk gives what the
+    serial plain decode gives: symbols up to n and info (``none``: info
+    only)."""
+    args = stream_walks[walk]
+    want = stream_decode.decode_stream_plain(*args)
+    got = decode_ablate.stream_ablate(*args, mode)
+    n = int(want[1][0])
+    assert len(got) == (1 if mode == "none" else 2)
+    assert torch.equal(got[-1], want[1])
+    if mode != "none":
+        assert torch.equal(got[0][:n], want[0][:n])
+
+
+def test_stream_walks_reach_their_shapes(stream_walks):
+    """The tail walk starts on a code boundary TAIL_SYMBOLS from the end; the
+    capped walk is capped; the piece is 7 bytes."""
+    words, start, total, cap, dt = stream_walks["tail"]
+    info = stream_decode.decode_stream_plain(words, start, total, cap, dt)[1]
+    assert info.tolist() == [decode_ablate.TAIL_SYMBOLS, info[1], stream_decode.STATUS_OK]
+    assert stream_walks["cap1m"][3] == 1500 and stream_walks["piece"][2] == 56
+    with pytest.raises(ValueError):
+        decode_ablate.stream_ablate(*stream_walks["piece"], "half")
+
+
 @pytest.mark.cuda
 def test_ablate_kernels_match_plain_on_card():
     """Every mode of the probe's kernels equals its plain version on the
@@ -180,3 +212,10 @@ def test_ablate_kernels_match_plain_on_card():
             for block in decode_ablate.BLOCKS:
                 got = fn(*args, mode, block=block, **kw)
                 assert all(torch.equal(a, b) for a, b in zip(got, want))
+    for args in decode_ablate.stream_walks(torch.device("cuda"), data).values():
+        want = stream_decode.decode_stream_plain(*args)
+        n = int(want[1][0])
+        for mode in decode_ablate.STREAM_MODES:
+            got = decode_ablate.stream_ablate(*args, mode)
+            assert torch.equal(got[-1], want[1])
+            assert mode == "none" or torch.equal(got[0][:n], want[0][:n])

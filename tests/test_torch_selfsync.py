@@ -214,4 +214,5 @@ def test_kernels_match_plain_on_card():
     for cap in (None, 500):
         got = stream_decode.decode_stream(words, 3, 8 * 4096, cap, dt)
         want = stream_decode.decode_stream_plain(words, 3, 8 * 4096, cap, dt)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        n = int(want[1][0])  # symbols past n are unspecified
+        assert torch.equal(got[1], want[1]) and torch.equal(got[0][:n], want[0][:n])

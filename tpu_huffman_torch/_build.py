@@ -58,9 +58,11 @@ SIGNATURES = {
         _P, _P, _P, _P, _P, _P,
     ),
     # device, words, n_words, start_bit, total_bits, out_capacity, l0,
-    # root_bits, l1, l1_size, out, info, stream
+    # root_bits, l1, l1_size, max_len, min_len, threads, sub_bits, overlap,
+    # out, info, stats (or null), stream
     "thc_stream_decode": (
-        _I32, _P, _I64, _I64, _I64, _I64, _P, _I32, _P, _I64, _P, _P, _P,
+        _I32, _P, _I64, _I64, _I64, _I64, _P, _I32, _P, _I64, _I32, _I32, _I32, _I32, _I32,
+        _P, _P, _P, _P,
     ),
     # The profiling probes (prof/), csrc/probe_*.cu.
     # device, x, n, table, table_bytes, rounds, accumulate, form, block,
@@ -83,6 +85,12 @@ SIGNATURES = {
     # thc_chain_decode's arguments before the stream, then mode, block
     "thc_probe_chain_decode": (
         _I32, _P, _I64, _P, _P, _P, _I64, _P, _I32, _P, _I64, _I32, _P, _P, _P, _I32, _I32, _P,
+    ),
+    # thc_stream_decode's arguments before the stream, then cycles and
+    # branches (each or null), mode
+    "thc_probe_stream_decode": (
+        _I32, _P, _I64, _I64, _I64, _I64, _P, _I32, _P, _I64, _I32, _I32, _I32, _I32, _I32,
+        _P, _P, _P, _P, _P, _I32, _P,
     ),
     # thc_selfsync_decode's arguments before the stream, then mode, block
     "thc_probe_selfsync_decode": (

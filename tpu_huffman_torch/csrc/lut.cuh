@@ -33,10 +33,24 @@ struct LutSmem {
   int l1_in_smem;
 };
 
-inline LutSmem lut_smem(int root_bits, long long l1_size) {
+__host__ __device__ inline LutSmem lut_smem(int root_bits, long long l1_size) {
   const long long l0_bytes = 4LL << root_bits;
   const int l1_in = l0_bytes + 4 * l1_size <= 48 * 1024;
   return {(size_t)(l0_bytes + (l1_in ? 4 * l1_size : 0)), l1_in};
+}
+
+// The block's copy of the LUT into shared memory, with no barrier: the
+// caller's next __syncthreads() must come before any lookup.
+__device__ __forceinline__ Lut copy_lut(int* smem, const int* __restrict__ l0_g,
+                                        int root_bits, const int* __restrict__ l1_g,
+                                        long long l1_size, int l1_in_smem) {
+  const int l0_size = 1 << root_bits;
+  for (int i = threadIdx.x; i < l0_size; i += blockDim.x) smem[i] = l0_g[i];
+  if (l1_in_smem) {
+    for (int i = threadIdx.x; i < l1_size; i += blockDim.x)
+      smem[l0_size + i] = l1_g[i];
+  }
+  return {smem, l1_in_smem ? smem + l0_size : l1_g, root_bits};
 }
 
 // Every thread of the block calls this once, before any lookup.
@@ -44,14 +58,9 @@ __device__ __forceinline__ Lut stage_lut(int* smem, const int* __restrict__ l0_g
                                          int root_bits,
                                          const int* __restrict__ l1_g,
                                          long long l1_size, int l1_in_smem) {
-  const int l0_size = 1 << root_bits;
-  for (int i = threadIdx.x; i < l0_size; i += blockDim.x) smem[i] = l0_g[i];
-  if (l1_in_smem) {
-    for (int i = threadIdx.x; i < l1_size; i += blockDim.x)
-      smem[l0_size + i] = l1_g[i];
-  }
+  const Lut lut = copy_lut(smem, l0_g, root_bits, l1_g, l1_size, l1_in_smem);
   __syncthreads();
-  return {smem, l1_in_smem ? smem + l0_size : l1_g, root_bits};
+  return lut;
 }
 
 // Whether a table's LUT has level-1 entries: some code is longer than the

@@ -8,9 +8,9 @@ Two ways to break the serial bit-offset dependency of Huffman decode:
    (``ops/chain_decode.py``). The index lives outside the byte stream,
    which stays bit-identical to the reference's.
 2. **Foreign streams** (:func:`decode`), which carry no index: small inputs
-   and capped calls walk the stream on one thread with the reference's
-   termination rules (``ops/stream_decode.py``); larger ones decode in
-   self-synchronising segments (``ops/selfsync.py``).
+   and capped calls go through one block's walk of the stream with the
+   reference's termination rules (``ops/stream_decode.py``); larger ones
+   decode in self-synchronising segments (``ops/selfsync.py``).
 """
 
 from __future__ import annotations
@@ -32,7 +32,7 @@ from .stream_decode import (  # noqa: F401  (public, as in the JAX package)
     STATUS_UNKNOWN_SYMBOL,
 )
 
-# Inputs up to this many bytes are decoded by the sequential kernel alone,
+# Inputs up to this many bytes are decoded by stream_decode's walk alone,
 # as in the JAX package's ``_decode_impl``.
 SEQUENTIAL_MAX_BYTES = 2048
 

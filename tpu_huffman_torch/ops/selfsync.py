@@ -49,7 +49,7 @@ The kernel segments leave out the stream's last partial segment and one
 guard segment, so every codeword they decode has more than 32 bits after it:
 there an invalid window is an unknown symbol, as in the reference
 (source/huffman.c:246), and no code can run past the end. The rest, from
-the last segment's exit, goes through the sequential kernel
+the last segment's exit, goes through stream_decode's walk
 (``ops/stream_decode.py``) with the reference's termination rules.
 
 The streaming decoder (``stream.py``) drains a retained word buffer
@@ -124,7 +124,7 @@ def max_symbols(table: HuffmanTable, seg_bits: int) -> int:
 
 def _plan_segments(total_bits: int, seg_words: int):
     """(S kernel segments, seg_bits) for a stream of ``total_bits`` bits, or
-    None when the stream is small enough for the sequential kernel alone.
+    None when the stream is small enough for stream_decode's walk alone.
     The last (possibly partial) segment and one guard segment are left to
     the sequential tail."""
     seg_bits = seg_words * 32

@@ -23,7 +23,7 @@ one call takes any input: nothing segments past 2^31 bits.
 Decoder. The retained stream lives on the device as words
 (:class:`_DeviceRemainder`): a call uploads only its new bytes and
 downloads only the symbols it emits. Up to ``BULK_DECODE_THRESHOLD``
-unconsumed bytes go through the sequential kernel (``stream_decode``);
+unconsumed bytes go through one block's walk (``stream_decode``);
 more take the self-sync drains of ``ops/selfsync.py``, uncapped or capped,
 whose cost is O(capacity) when capped.
 
@@ -48,7 +48,7 @@ from .ops.encode import DEFAULT_EOS_PADDING, DeviceTable, resolve_device, stage_
 from .tables import HuffmanTable
 
 # Retained streams of more unconsumed bytes than this take the self-sync
-# drains; smaller ones the sequential kernel (as in the JAX package).
+# drains; smaller ones stream_decode's walk (as in the JAX package).
 BULK_DECODE_THRESHOLD = 65536
 
 _TILE = pack_encode.TILE  # symbols per count tile

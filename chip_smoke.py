@@ -117,10 +117,33 @@ Phases (any failure raises and the script exits non-zero):
      seed and at every shape, round count and block size it is timed at;
      then timed where they fill the card, the dependent-step
      latencies at 1, 8 and 64 warps an SM, and the library yardsticks
-     (chained torch.take; the one-hot torch.matmul).
+     (chained torch.take; the one-hot torch.matmul);
+ 11. the mesh (tpu_huffman_torch.shard, .distributed): MeshCodec on
+     default_mesh() (every card), on 4 shards of the first card and on a
+     2 x 2 ("dcn", "ici") mesh of it, 64 MiB of random bytes (seed 2024)
+     on the static table at block_symbols 256, with the launch counters
+     reset before each mesh and one count, pack and chain_decode per
+     non-empty shard asserted; bytes and index equal encode_with_index's,
+     decode gives the input; each shard's count, its pack at its own phase
+     and at phase 31, and its chain_decode stripe against the plain
+     versions; ragged sizes (1, 7, 4095, 4 x 2 tiles so that every shard
+     ends on a tile seam, 12345), eos_padding 0x00/0x5A/0xFF, an unknown
+     symbol at tt.encode's (index, symbol), a corrupt stream raising;
+     canterbury_like(8 MiB, seed 42) with build_table(max_len=14) through
+     encode_with_index and the 4-shard mesh against the plain versions;
+     two worker processes (this script with --mesh-worker) in a gloo group,
+     2 shards each on the first card, through encode_global/decode_global
+     on 20,000 and 16 MiB split unevenly: the bytes equal tt.encode of the
+     whole, both ranks return the same index and the plaintext, each rank
+     launches one count, pack and chain_decode a non-empty shard (NCCL is
+     not verified: it runs one rank a card); then wall and device busy of
+     MeshCodec.encode/decode at 64 MiB on 1 and 4 shards beside
+     encode_with_index/decode_indexed.
 
 The last line is one JSON object {"ok": true, "device": {...}}; the line
-before it is the {"kernels": [...]} summary, with each kernel's bound: the
+before it is the {"kernels": [...]} summary (count, pack and chain_decode
+list every path that launched them, with its launches, under "paths"),
+with each kernel's bound: the
 larger of the bytes it must move (each input read once, each output written
 once) over 3.35 TB/s and its integer operations over 67 T/s (the card's
 float32 rate outside the tensor cores, the published peak nearest to
@@ -133,7 +156,9 @@ from __future__ import annotations
 
 import ast
 import collections
+import concurrent.futures
 import json
+import multiprocessing
 import os
 import statistics
 import subprocess
@@ -1241,6 +1266,351 @@ def phase_probes(torch, dev) -> list:
     return rows
 
 
+# The mesh phase's two-process case: rank 0's share of each input.
+MESH_PROC_SPLITS = ((20_000, 12_032), (16 * MIB, 10 * MIB + 12_345))
+MESH_PROC_SHARDS = 2  # shards a process, all on the first card
+MESH_PROC_TIMEOUT = 300  # seconds a worker may take
+
+
+def _mesh_proc_inputs(n: int) -> bytes:
+    return np.random.default_rng(SEED + 3 + n).integers(0, 256, size=n, dtype=np.uint8).tobytes()
+
+
+def mesh_worker(rank: str, store: str, out_path: str, device: str) -> int:
+    """One process of the mesh phase's gloo group of two, which meets
+    through the file ``store`` (run as ``chip_smoke.py --mesh-worker RANK
+    STORE OUT DEVICE``): MESH_PROC_SHARDS
+    shards on ``device``, encode_global and decode_global of its share of
+    each MESH_PROC_SPLITS input, with the launch counters read around each
+    call; every result goes to the .npz ``out_path`` for the parent."""
+    import torch
+
+    sys.path.insert(0, ROOT)
+    import tpu_huffman_torch as tt
+    from tpu_huffman_torch import distributed as dist
+    from tpu_huffman_torch.ops import chain_decode, pack_encode
+
+    rank = int(rank)
+    dist.initialize(f"file://{store}", world_size=2, rank=rank, backend="gloo")
+    dev = torch.device(device)
+    mesh = dist.global_data_mesh(local_devices=[dev] * MESH_PROC_SHARDS)
+    codec = tt.MeshCodec(tt.load_static_test_table(), mesh, block_symbols=256)
+    out = {}
+    for case, (n, split) in enumerate(MESH_PROC_SPLITS):
+        full = _mesh_proc_inputs(n)
+        mine = full[:split] if rank == 0 else full[split:]
+        _reset(pack_encode.launches, chain_decode.launches)
+        t0 = time.perf_counter()
+        enc, idx = dist.encode_global(codec, mine)
+        t1 = time.perf_counter()
+        enc_launches = dict(pack_encode.launches)
+        _reset(chain_decode.launches)
+        dec = dist.decode_global(codec, enc, idx)
+        t2 = time.perf_counter()
+        out.update({
+            f"{case}_encoded": np.frombuffer(enc, dtype=np.uint8),
+            f"{case}_bit_offsets": idx.bit_offsets, f"{case}_n_symbols": idx.n_symbols,
+            f"{case}_fields": np.array([idx.symbols_per_block, idx.total_symbols,
+                                        idx.total_bits, idx.max_code_len]),
+            f"{case}_decoded_ok": np.array(dec == full),
+            f"{case}_launches": np.array([enc_launches["encode_count"],
+                                          enc_launches["encode_pack"],
+                                          chain_decode.launches["chain_decode"]]),
+            f"{case}_seconds": np.array([t1 - t0, t2 - t1]),
+        })
+    np.savez(out_path, **out)
+    # leave the group together: a gloo group torn down at exit after its
+    # peer has gone aborts the process
+    torch.distributed.barrier()
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def _mesh_processes(tt, table, dev) -> dict:
+    """Two worker processes in a gloo group, MESH_PROC_SHARDS shards each on
+    ``dev``: the bytes of encode_global equal tt.encode of the whole, both
+    ranks return the same index and the plaintext, and each rank launches
+    one count, pack and chain_decode a non-empty local shard."""
+    import tempfile
+
+    from tpu_huffman_torch.shard import _bucket_pow2
+
+    with tempfile.TemporaryDirectory(prefix="mesh_proc_") as tmp:
+        paths = [os.path.join(tmp, f"rank{r}.npz") for r in range(2)]
+        procs = [
+            subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-worker", str(r),
+                 os.path.join(tmp, "store"), paths[r], str(dev)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(2)
+        ]
+        logs = []
+        try:
+            for p in procs:
+                logs.append(p.communicate(timeout=MESH_PROC_TIMEOUT)[0])
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(f"mesh worker {r} failed ({p.returncode}):\n{log}")
+        res = []
+        for path in paths:
+            with np.load(path) as z:
+                res.append(dict(z))
+    report = {}
+    for case, (n, split) in enumerate(MESH_PROC_SPLITS):
+        full = _mesh_proc_inputs(n)
+        want = tt.encode(full, table, device=dev)
+        r0, r1 = res
+        for key in ("encoded", "bit_offsets", "n_symbols", "fields"):
+            if not np.array_equal(r0[f"{case}_{key}"], r1[f"{case}_{key}"]):
+                raise AssertionError(f"two processes, {n} bytes: the ranks' {key} differ")
+        if r0[f"{case}_encoded"].tobytes() != want:
+            raise AssertionError(f"two processes, {n} bytes: encode_global != tt.encode of the whole")
+        if not (r0[f"{case}_decoded_ok"] and r1[f"{case}_decoded_ok"]):
+            raise AssertionError(f"two processes, {n} bytes: decode_global != the input")
+        bs, total, bits, _max = (int(x) for x in r0[f"{case}_fields"])
+        idx = tt.BlockIndex(bs, r0[f"{case}_bit_offsets"], r0[f"{case}_n_symbols"], total, bits)
+        if tt.decode_indexed(want, idx, table, device=dev) != full:
+            raise AssertionError(f"two processes, {n} bytes: the index does not decode the stream")
+        per_dev = _bucket_pow2(max(256, -(-split // MESH_PROC_SHARDS),
+                                   -(-(n - split) // MESH_PROC_SHARDS)), 256)
+        launches = []
+        for r, share in enumerate((split, n - split)):
+            live = sum(1 for j in range(MESH_PROC_SHARDS) if j * per_dev < share)
+            got = res[r][f"{case}_launches"].tolist()
+            if got != [live] * 3:
+                raise AssertionError(f"two processes, {n} bytes, rank {r}: launches "
+                                     f"(count, pack, chain_decode) {got}, expected {live} each")
+            launches.append(got)
+        report[n] = {"split": [split, n - split], "launches_by_rank": launches,
+                     "seconds_by_rank": [res[r][f"{case}_seconds"].tolist() for r in range(2)]}
+    return report
+
+
+def _mesh_kernel_checks(mc, data: bytes, encoded: bytes, index) -> dict:
+    """Each kernel of the mesh path against its plain version at the
+    shapes the 4-shard mesh gives it: every shard's count, its pack at its
+    own phase (and at phase 31, the widest shift), its chain_decode stripe
+    with relative offsets."""
+    from tpu_huffman_torch.ops import chain_decode, pack_encode
+    from tpu_huffman_torch.prof import max_abs_err
+    from tpu_huffman_torch.shard import _bucket_pow2, _phase_base
+
+    symbols = np.frombuffer(data, dtype=np.uint8)
+    per_dev = _bucket_pow2(-(-symbols.size // mc.mesh.size), mc.block_symbols)
+    shards = mc._count(symbols, per_dev)
+    totals = mc._read_counts(shards)[:, 2]
+    phases, _bases = _phase_base(totals)
+    errs = {"encode_count": 0, "encode_pack": 0, "chain_decode": 0}
+    last = max(j for j, s in enumerate(shards) if s is not None)
+    for j, s in enumerate(shards):
+        if s is None:
+            continue
+        dt = mc._dt(s.symbols.device)
+        tb_p, st_p = pack_encode.count_plain(s.symbols, dt)
+        errs["encode_count"] = max(errs["encode_count"], max_abs_err(s.tile_bits, tb_p),
+                                   max_abs_err(s.stats, st_p))
+        eos = mc.eos_padding if j == last else 0
+        for phase in sorted({int(phases[j]), 31}):
+            got = mc._pack(s, phase, int(totals[j]), eos, True)
+            n_words = got[0].numel()
+            want = pack_encode.pack_plain(s.symbols, dt, s.incl - s.tile_bits + phase,
+                                          phase + int(totals[j]), eos, n_words,
+                                          mc.block_symbols)
+            errs["encode_pack"] = max(errs["encode_pack"], max_abs_err(got[0], want[0]),
+                                      max_abs_err(got[1], want[1]))
+    offs = np.asarray(index.bit_offsets, dtype=np.int64)
+    counts = np.asarray(index.n_symbols, dtype=np.int64)
+    raw = np.frombuffer(encoded, dtype=np.uint8)
+    for g, dev in enumerate(mc._local):
+        args = mc._decode_args(raw, offs, counts, g, dev)
+        if args is None:
+            continue
+        got = chain_decode.decode_chains(*args)
+        want = chain_decode.decode_chains_plain(*args)
+        errs["chain_decode"] = max(errs["chain_decode"],
+                                   *(max_abs_err(a, b) for a, b in zip(got, want)))
+    if any(errs.values()):
+        raise AssertionError(f"a mesh kernel differs from its plain version: {errs}")
+    return errs
+
+
+def _same_index(a, b) -> bool:
+    return (a.symbols_per_block, a.total_symbols, a.total_bits, a.max_code_len) == (
+        b.symbols_per_block, b.total_symbols, b.total_bits, b.max_code_len
+    ) and np.array_equal(a.bit_offsets, b.bit_offsets) and np.array_equal(
+        a.n_symbols, b.n_symbols)
+
+
+CANTERBURY_MB = 8
+
+
+def canterbury(n: int) -> bytes:
+    """bench_suite.py's canterbury corpus: ``canterbury_like(n, seed=42)``
+    (~25 s of Python at 8 MiB, so main() makes it in a process of its own
+    while the earlier phases run)."""
+    sys.path.insert(0, ROOT)
+    from tpu_huffman_torch import corpora
+
+    return corpora.canterbury_like(n, seed=42)
+
+
+def phase_mesh(torch, tt, table, dev, smi: str, corpus: bytes, mb: int = 64) -> dict:
+    """Phase 11: MeshCodec and the multi-process layer (see the module
+    docstring), ``corpus`` the canterbury corpus. Returns the launches of
+    each path and the timings."""
+    from tpu_huffman_torch.ops import chain_decode, pack_encode
+    from tpu_huffman_torch.shard import Mesh, _bucket_pow2
+
+    t0 = time.perf_counter()
+    counters = (pack_encode.launches, chain_decode.launches)
+    card = dev.type == "cuda"
+    meshes = {
+        "default_mesh()": tt.default_mesh() if card else tt.default_mesh(devices=[dev]),
+        "4 shards": Mesh([dev] * 4, ("data",)),
+        "2 x 2 (dcn, ici)": Mesh(np.full((2, 2), dev, dtype=object), ("dcn", "ici")),
+    }
+    codecs = {name: tt.MeshCodec(table, mesh, block_symbols=256) for name, mesh in meshes.items()}
+
+    def launched() -> list:
+        return [pack_encode.launches["encode_count"], pack_encode.launches["encode_pack"],
+                chain_decode.launches["chain_decode"]]
+
+    def live_shards(mc, n: int) -> int:
+        per_dev = _bucket_pow2(-(-n // mc.mesh.size), mc.block_symbols)
+        return sum(1 for s in range(mc.mesh.size) if s * per_dev < n)
+
+    # ---- the main path at full size: each mesh, counters reset around it
+    data = np.random.default_rng(SEED).integers(0, 256, size=mb * MIB, dtype=np.uint8).tobytes()
+    want, want_idx = tt.encode_with_index(data, table, device=dev)
+    paths = {}
+    for name, mc in codecs.items():
+        _reset(*counters)
+        enc, idx = mc.encode(data)
+        dec = mc.decode(enc, idx)
+        got = launched()
+        live = live_shards(mc, len(data))
+        if enc != want or not _same_index(idx, want_idx) or dec != data:
+            raise AssertionError(f"mesh {name}, {mb} MiB: bytes, index or round trip differ "
+                                 "from encode_with_index / decode_indexed")
+        if got != [live] * 3:
+            raise AssertionError(f"mesh {name}, {mb} MiB: launches (count, pack, chain_decode) "
+                                 f"{got}, expected {live} each (one a non-empty shard)")
+        paths[name] = dict(zip(("encode_count", "encode_pack", "chain_decode"), got))
+        print(f"phase 11 mesh {name} (shards: {meshes[name].size} on {dev}), {mb} MiB: bytes and "
+              f"index equal encode_with_index's, decode gives the input; launches (count, "
+              f"pack, chain_decode) {got}")
+    errs = _mesh_kernel_checks(codecs["4 shards"], data, want, want_idx)
+    print(f"phase 11 mesh kernels at the 4-shard mesh's shapes ({mb / 4:g} MiB a shard, each "
+          f"shard's phase and phase 31) against their plain versions: max_abs_err {errs} "
+          f"({time.perf_counter() - t0:.1f} s into the phase)")
+
+    # ---- ragged sizes, EOS padding, an unknown symbol, a corrupt stream
+    seam = 4 * pack_encode.TILE * 2  # each of 4 shards exactly 2 tiles
+    assert _bucket_pow2(seam // 4, 256) == 2 * pack_encode.TILE
+    for n in (1, 7, 4095, seam, 12_345):
+        small = np.random.default_rng(n).integers(0, 256, size=n, dtype=np.uint8).tobytes()
+        ref, ref_idx = tt.encode_with_index(small, table, device=dev)
+        if ref != tt.encode(small, table, device="cpu"):
+            raise AssertionError(f"{n} bytes: the card's encode differs from the plain version's")
+        for name, mc in codecs.items():
+            _reset(*counters)
+            enc, idx = mc.encode(small)
+            if enc != ref or not _same_index(idx, ref_idx) or mc.decode(enc, idx) != small:
+                raise AssertionError(f"mesh {name}, {n} bytes: differs from encode_with_index")
+            if launched() != [live_shards(mc, n)] * 3:
+                raise AssertionError(f"mesh {name}, {n} bytes: launches {launched()}")
+    four = codecs["4 shards"]
+    for pad in (0x00, 0x5A, 0xFF):
+        padded = tt.MeshCodec(table, meshes["4 shards"], block_symbols=256, eos_padding=pad)
+        for small in (b"a", data[:3001]):
+            if padded.encode(small)[0] != tt.encode(small, table, eos_padding=pad, device=dev):
+                raise AssertionError(f"mesh eos_padding {pad:#x}: differs from tt.encode")
+    ab = tt.make_canonical({65: 1, 66: 2})
+    bad_input = b"AB" * 5000 + b"C" + b"AB" * 10
+    caught = []
+    for encode in (lambda: tt.encode(bad_input, ab, device=dev),
+                   lambda: tt.MeshCodec(ab, meshes["4 shards"]).encode(bad_input)):
+        try:
+            encode()
+        except tt.UnknownSymbolError as exc:
+            caught.append((exc.index, exc.symbol))
+    if caught != [(10000, 67)] * 2:
+        raise AssertionError(f"unknown symbol: tt.encode and the mesh raised {caught}")
+    small = data[:12_345]
+    enc, idx = four.encode(small)
+    corrupt = bytearray(enc)
+    corrupt[len(enc) // 2: len(enc) // 2 + 64] = bytes(64)  # zeros match no static code
+    for name, decode in (("mesh", lambda: four.decode(bytes(corrupt), idx)),
+                         ("decode_indexed", lambda: tt.decode_indexed(bytes(corrupt), idx, table,
+                                                                      device=dev))):
+        try:
+            decode()
+        except tt.UnknownSymbolError:
+            continue
+        raise AssertionError(f"{name}: a corrupt stream did not raise")
+    print("phase 11 mesh ragged sizes 1, 7, 4095, 4 x 2 tiles (every shard ends on a tile "
+          "seam), 12345 on every mesh; eos_padding 0x00/0x5A/0xFF; unknown symbol at "
+          "(10000, 67) as tt.encode; a corrupt stream raising: ok "
+          f"({time.perf_counter() - t0:.1f} s into the phase)")
+
+    # ---- canterbury with build_table (bench_suite.py's corpus and table)
+    ctable = tt.build_table(corpus, max_len=14)
+    enc_c, idx_c = tt.encode_with_index(corpus, ctable, device=dev)
+    plain_c = tt.encode(corpus, ctable, device="cpu")
+    mesh_c, mesh_idx = tt.MeshCodec(ctable, meshes["4 shards"]).encode(corpus)
+    if not (enc_c == plain_c == mesh_c and _same_index(mesh_idx, idx_c)):
+        raise AssertionError("canterbury: the card's bytes or index differ from the plain "
+                             "version's or encode_with_index's")
+    if tt.decode_indexed(enc_c, idx_c, ctable, device=dev) != corpus or tt.MeshCodec(
+            ctable, meshes["4 shards"]).decode(mesh_c, mesh_idx) != corpus:
+        raise AssertionError("canterbury: a decode differs from the corpus")
+    print(f"phase 11 canterbury_like({len(corpus) / MIB:g} MiB, seed=42), build_table(max_len=14) "
+          f"({ctable.min_len}..{ctable.max_len}-bit codes): {len(corpus)} -> {len(enc_c)} bytes; "
+          "encode_with_index and the 4-shard mesh equal the plain version's bytes, the mesh's "
+          "index encode_with_index's; both decodes give the corpus "
+          f"({time.perf_counter() - t0:.1f} s into the phase)")
+
+    # ---- two processes, gloo
+    procs = _mesh_processes(tt, table, dev)
+    for n, rep in procs.items():
+        print(f"phase 11 two processes (gloo, {MESH_PROC_SHARDS} shards each on {dev}), {n} "
+              f"bytes split {rep['split']}: encode_global equals tt.encode of the whole, both "
+              f"ranks return the same index and the plaintext; launches (count, pack, "
+              f"chain_decode) by rank {rep['launches_by_rank']}; seconds (encode, decode) by "
+              f"rank {rep['seconds_by_rank']}")
+    print("phase 11 NCCL is not verified: NCCL runs one rank a card and this run has one card "
+          f"({time.perf_counter() - t0:.1f} s into the phase)")
+
+    # ---- timings at full size: 1 and 4 shards beside the one-device calls
+    timed = {
+        "encode_with_index": lambda: tt.encode_with_index(data, table, device=dev),
+        "decode_indexed": lambda: tt.decode_indexed(want, want_idx, table, device=dev),
+        "MeshCodec.encode, 1 shard": lambda: codecs["default_mesh()"].encode(data),
+        "MeshCodec.decode, 1 shard": lambda: codecs["default_mesh()"].decode(want, want_idx),
+        "MeshCodec.encode, 4 shards": lambda: four.encode(data),
+        "MeshCodec.decode, 4 shards": lambda: four.decode(want, want_idx),
+    }
+    timings = {}
+    for name, fn in timed.items():
+        wall = _median_wall_ms(torch, fn)
+        by_kernel = _device_ms_by_kernel(torch, fn)
+        busy = sum(by_kernel.values())
+        timings[name] = {"wall_ms": wall, "device_busy_ms": busy}
+        print(f"phase 11 {name} at {mb} MiB: {wall:.3f} ms wall (median of {REPS}), "
+              f"{busy:.4f} ms device busy (torch.profiler), {mb * MIB / wall / 1e6:.3f} GB/s of "
+              f"plaintext; {smi}")
+        for key, t in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5]:
+            print(f"  {t:.4f} ms  {key[:100]}")
+    print(f"phase 11 done in {time.perf_counter() - t0:.1f} s")
+    return {"paths": paths, "processes": {str(n): r for n, r in procs.items()},
+            "timings": timings, "max_abs_err": errs}
+
+
 def main() -> int:
     import torch
 
@@ -1257,6 +1627,10 @@ def main() -> int:
     from tpu_huffman_torch.prof import max_abs_err, median_ms
 
     dev = torch.device("cuda")
+    # phase 11's corpus, made meanwhile in a process of its own
+    corpus_pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    corpus_job = corpus_pool.submit(canterbury, CANTERBURY_MB * MIB)
 
     # ---- 1. the card, the versions, the build ----------------------------
     smi = subprocess.run(
@@ -1781,6 +2155,9 @@ def main() -> int:
     phase_c2(torch, tt, static, counters, dev)
     phase_hpack(torch, tt, hpack, counters, dev)
     probe_rows = phase_probes(torch, dev)
+    corpus = corpus_job.result()
+    corpus_pool.shutdown()
+    mesh = phase_mesh(torch, tt, static, dev, smi, corpus)
 
     kernels = [
         {"name": "encode_count", "route": "cuda",
@@ -1808,6 +2185,14 @@ def main() -> int:
          "streaming_16k": streaming_small},
     ]
     for k in kernels:
+        if k["name"] in mesh["max_abs_err"]:
+            errs[k["name"]] = max(errs[k["name"]], mesh["max_abs_err"][k["name"]])
+            # every path that launches it, with that path's launches
+            k["paths"] = {"encode_with_index / decode_indexed (phase 4)": launches[k["name"]],
+                          **{f"MeshCodec, {name} (phase 11)": got[k["name"]]
+                             for name, got in mesh["paths"].items()},
+                          "encode_global / decode_global, 2 processes (phase 11)": {
+                              n: rep["launches_by_rank"] for n, rep in mesh["processes"].items()}}
         bound_ms, bound_by = _bound(*work[k["name"]])
         # No single PyTorch call computes any of these functions.
         k.update(launches=launches[k["name"]], max_abs_err=errs[k["name"]],
@@ -1824,4 +2209,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-worker"]:
+        sys.exit(mesh_worker(*sys.argv[2:]))
     sys.exit(main())

@@ -92,7 +92,9 @@ def test_import_leaves_jax_out():
         "import sys, tpu_huffman_torch, tpu_huffman_torch.ops, tpu_huffman_torch.stream,"
         " tpu_huffman_torch.testing, tpu_huffman_torch.prof, tpu_huffman_torch.prof.lut,"
         " tpu_huffman_torch.prof.mma_lut, tpu_huffman_torch.prof.latency,"
-        " tpu_huffman_torch.prof.pack_ablate;"
+        " tpu_huffman_torch.prof.pack_ablate, tpu_huffman_torch.shard,"
+        " tpu_huffman_torch.distributed, tpu_huffman_torch.corpora,"
+        " tpu_huffman_torch.metrics, tpu_huffman_torch.huffgen;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_huffman')];"
         "assert not bad, bad"
     )

@@ -5,11 +5,12 @@ A port of the JAX package ``tpu_huffman``, which stays the reference: the
 same bytes, block index and errors for the same inputs. It carries the main
 path (one-shot ``encode``/``encode_with_index`` and the block-parallel
 ``decode_indexed``), the one-shot ``decode`` of foreign streams, which
-carry no index, and the streaming ``HuffmanEncoder``/``HuffmanDecoder``
-with the reference's SHORT_BUFFER resume protocol. Public functions and
-constructors take ``device``
-(default ``"cuda"``); on ``"cpu"`` they run the kernels' plain PyTorch
-versions. The kernels (``csrc/*.cu``) are built with ``nvcc`` at first use
+carry no index, the streaming ``HuffmanEncoder``/``HuffmanDecoder``
+with the reference's SHORT_BUFFER resume protocol, the data-parallel
+``MeshCodec`` over a mesh of devices and processes, and the table tools.
+Public functions and constructors take ``device`` (default ``"cuda"``;
+a mesh names its devices); on ``"cpu"`` they run the kernels' plain
+PyTorch versions. The kernels (``csrc/*.cu``) are built with ``nvcc`` at first use
 (``_build.py``). Nothing here imports JAX or the JAX package.
 
 Layer map (SURVEY.md §1):
@@ -20,8 +21,17 @@ Layer map (SURVEY.md §1):
   3. symbol coder     -> tables.HuffmanTable
   4. streaming        -> stream.HuffmanEncoder/HuffmanDecoder (testing.py:
                          the transitive round-trip oracles)
-  (tools)             -> prof/: the profiling probes on the card (not
-                         imported here)
+  5. mesh             -> shard.MeshCodec/default_mesh (each shard's count,
+                         pack and chain_decode on its own device, an int64
+                         prefix of the shards' bit totals, a word OR);
+                         distributed.py: the process group, global meshes,
+                         encode_global/decode_global on torch.distributed
+  (tools)             -> tables.build_table/optimal_code_lengths/
+                         safe_eos_padding and the .def/.tsv/.npz artifacts;
+                         huffgen.py: the table-compiler CLI; corpora.py:
+                         the benchmark corpora; metrics.py: call counters
+                         and a torch.profiler trace; prof/: the profiling
+                         probes on the card (not imported here)
 """
 
 from __future__ import annotations
@@ -40,14 +50,18 @@ from .ops import (
     encode_with_index,
     get_encoded_length,
 )
+from .shard import MeshCodec, default_mesh
 from .stream import DecodeResult, EncodeResult, HuffmanDecoder, HuffmanEncoder
 from .tables import (
     CodeSpec,
     HuffmanTable,
+    build_table,
     from_reference,
     load_hpack_table,
     load_static_test_table,
     make_canonical,
+    optimal_code_lengths,
+    safe_eos_padding,
 )
 
 __version__ = "0.1.0"
@@ -81,11 +95,14 @@ __all__ = [
     "HuffmanDecoder",
     "HuffmanEncoder",
     "HuffmanTable",
+    "MeshCodec",
     "ShortBufferError",
     "TableError",
     "UnknownSymbolError",
+    "build_table",
     "decode",
     "decode_indexed",
+    "default_mesh",
     "encode",
     "encode_with_index",
     "from_reference",
@@ -96,4 +113,6 @@ __all__ = [
     "load_hpack_table",
     "load_static_test_table",
     "make_canonical",
+    "optimal_code_lengths",
+    "safe_eos_padding",
 ]

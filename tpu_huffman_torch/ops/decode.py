@@ -20,6 +20,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import metrics
 from ..errors import UnknownSymbolError
 from ..tables import HuffmanTable
 from . import chain_decode, selfsync, stream_decode
@@ -50,6 +51,25 @@ class BlockIndex:
     max_code_len: int = 0  # the data's longest code (0 = unknown)
 
 
+def index_arrays(index: BlockIndex) -> tuple[np.ndarray, np.ndarray]:
+    """The index's (bit_offsets, n_symbols) as int64 arrays, checked
+    against each other and against total_symbols."""
+    offs = np.asarray(index.bit_offsets, dtype=np.int64).reshape(-1)
+    counts = np.asarray(index.n_symbols, dtype=np.int64).reshape(-1)
+    if offs.size != counts.size:
+        raise ValueError("index bit_offsets and n_symbols differ in length")
+    if (counts < 0).any() or int(counts.sum()) != index.total_symbols:
+        raise ValueError("index n_symbols do not add up to total_symbols")
+    return offs, counts
+
+
+def check_offsets(offs: np.ndarray, n_bytes: int) -> None:
+    """Raise unless every block's entry bit lies within a stream of
+    ``n_bytes`` bytes."""
+    if offs.min() < 0 or offs.max() > 8 * n_bytes:
+        raise ValueError("index bit offsets lie outside the stream")
+
+
 def decode_indexed(data, index: BlockIndex, table: HuffmanTable,
                    device="cuda") -> bytes:
     """Block-parallel decode of ``data`` with a trusted BlockIndex.
@@ -59,17 +79,11 @@ def decode_indexed(data, index: BlockIndex, table: HuffmanTable,
     UnknownSymbolError when a window inside a block matches no code.
     """
     dev = resolve_device(device)
-    offs = np.asarray(index.bit_offsets, dtype=np.int64).reshape(-1)
-    counts = np.asarray(index.n_symbols, dtype=np.int64).reshape(-1)
-    if offs.size != counts.size:
-        raise ValueError("index bit_offsets and n_symbols differ in length")
-    if (counts < 0).any() or int(counts.sum()) != index.total_symbols:
-        raise ValueError("index n_symbols do not add up to total_symbols")
+    offs, counts = index_arrays(index)
     if index.total_symbols == 0:
         return b""
     raw = stage_bytes(data, dev)
-    if offs.min() < 0 or offs.max() > 8 * raw.numel():
-        raise ValueError("index bit offsets lie outside the stream")
+    check_offsets(offs, raw.numel())
     words = stage_words(raw)
     out_start = np.zeros_like(counts)
     np.cumsum(counts[:-1], out=out_start[1:])
@@ -96,6 +110,13 @@ def decode(data, table: HuffmanTable, max_output: int | None = None,
     rules. With ``max_output``, decoding stops after that many symbols.
     Inputs of any size decode in one call: absolute bit positions are int64.
     """
+    with metrics.record("decode", len(data)) as m:
+        out = _decode_impl(data, table, max_output, device)
+        m[0] = len(out)
+    return out
+
+
+def _decode_impl(data, table, max_output, device) -> bytes:
     dev = resolve_device(device)
     raw = stage_bytes(data, dev)
     if raw.numel() == 0:

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import metrics
 from ..errors import UnknownSymbolError
 from ..tables import HuffmanTable, _build_decode_lut
 from . import pack_encode
@@ -131,6 +132,13 @@ def encode(data, table: HuffmanTable, eos_padding: int = DEFAULT_EOS_PADDING,
     Raises UnknownSymbolError (with the input index and symbol of the first
     symbol that has no code).
     """
+    with metrics.record("encode", len(data)) as m:
+        out = _encode_impl(data, table, eos_padding, device)
+        m[0] = len(out)
+    return out
+
+
+def _encode_impl(data, table, eos_padding, device) -> bytes:
     dev = resolve_device(device)
     symbols = stage_bytes(data, dev)
     if symbols.numel() == 0:

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import re
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -32,6 +33,10 @@ from .errors import TableError
 MAX_CODE_BITS = 32
 NUM_SYMBOLS = 256
 DEFAULT_ROOT_BITS = 12
+
+_DEF_CODE_RE = re.compile(
+    r'HUFFMAN_CODE\(\s*(\d+)\s*,\s*"([01]*)"\s*,\s*(0[xX][0-9a-fA-F]+|\d+)\s*,\s*(\d+)\s*\)'
+)
 
 _DATA_DIR = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -57,6 +62,35 @@ class CodeSpec:
             raise TableError(
                 f"pattern {self.pattern:#x} wider than num_bits={self.num_bits}"
             )
+
+
+def parse_def(text: str) -> list[CodeSpec]:
+    """Parse the reference ``.def`` table format: lines of
+    ``HUFFMAN_CODE(symbol, "bitstring", hex_pattern, num_bits)``, ignoring
+    ``#`` preprocessor lines and ``/* ... */`` comments. A bit string that
+    disagrees with its pattern, or a symbol defined twice, raises
+    TableError."""
+    stripped = re.sub(r"/\*.*?\*/", " ", text, flags=re.DOTALL)
+    specs: list[CodeSpec] = []
+    seen: set[int] = set()
+    for line in stripped.splitlines():
+        if line.lstrip().startswith("#"):
+            continue
+        for m in _DEF_CODE_RE.finditer(line):
+            sym = int(m.group(1))
+            bit_str = m.group(2)
+            pattern = int(m.group(3), 0)
+            num_bits = int(m.group(4))
+            if bit_str and (len(bit_str) != num_bits or int(bit_str, 2) != pattern):
+                raise TableError(
+                    f"symbol {sym}: bit string {bit_str!r} disagrees with "
+                    f"pattern={pattern:#x} num_bits={num_bits}"
+                )
+            if sym in seen:
+                raise TableError(f"symbol {sym} defined twice")
+            seen.add(sym)
+            specs.append(CodeSpec(sym, num_bits, pattern))
+    return specs
 
 
 def parse_tsv(text: str) -> list[CodeSpec]:
@@ -183,6 +217,14 @@ class HuffmanTable:
         )
 
     @staticmethod
+    def from_def_file(path: str, name: str | None = None) -> "HuffmanTable":
+        with open(path) as f:
+            specs = parse_def(f.read())
+        return HuffmanTable.from_specs(
+            specs, name=name or os.path.splitext(os.path.basename(path))[0]
+        )
+
+    @staticmethod
     def from_tsv_file(path: str, name: str | None = None) -> "HuffmanTable":
         with open(path) as f:
             specs = parse_tsv(f.read())
@@ -196,6 +238,49 @@ class HuffmanTable:
             for s in range(NUM_SYMBOLS)
             if self.lengths[s]
         ]
+
+    def to_tsv(self) -> str:
+        lines = ["# symbol\tnum_bits\tpattern_hex"]
+        for spec in self.specs():
+            lines.append(f"{spec.symbol}\t{spec.num_bits}\t{spec.pattern:x}")
+        return "\n".join(lines) + "\n"
+
+    def save(self, path: str) -> None:
+        """Persist as an .npz artifact, with the JAX package's keys, so each
+        package loads the other's files."""
+        np.savez(
+            path,
+            patterns=self.patterns,
+            lengths=self.lengths,
+            l0_bits=self.l0_bits,
+            l0_val=self.l0_val,
+            l1_bits=self.l1_bits,
+            l1_val=self.l1_val,
+            root_bits=np.int32(self.root_bits),
+            name=np.array(self.name),
+        )
+
+    @staticmethod
+    def load(path: str) -> "HuffmanTable":
+        z = np.load(path, allow_pickle=False)
+        lengths = z["lengths"]
+        nz = lengths[lengths > 0]
+        return HuffmanTable(
+            patterns=z["patterns"],
+            lengths=lengths,
+            l0_bits=z["l0_bits"],
+            l0_val=z["l0_val"],
+            l1_bits=z["l1_bits"],
+            l1_val=z["l1_val"],
+            root_bits=int(z["root_bits"]),
+            max_len=int(nz.max()),
+            min_len=int(nz.min()),
+            name=str(z["name"]),
+        )
+
+    def encode_symbol(self, symbol: int) -> tuple[int, int]:
+        """Return (pattern, num_bits); num_bits == 0 means unknown symbol."""
+        return int(self.patterns[symbol]), int(self.lengths[symbol])
 
     def decode_window(self, bits32: int) -> tuple[int, int]:
         """Decode a 32-bit MSB-aligned window. Returns (symbol, bits_read);
@@ -255,6 +340,120 @@ def make_canonical(
         code += 1
         prev_len = l
     return HuffmanTable.from_specs(specs, name=name)
+
+
+def optimal_code_lengths(
+    freqs: Sequence[int] | np.ndarray, max_len: int = MAX_CODE_BITS
+) -> np.ndarray:
+    """Optimal length-limited prefix-code lengths by package-merge.
+
+    Returns int32[256] lengths (0 for zero-frequency symbols), minimising
+    the encoded size subject to ``max_len``, ready for
+    :func:`make_canonical`. Raises TableError when no frequency is nonzero
+    or the alphabet cannot fit in ``max_len`` bits.
+    """
+    f = np.zeros(NUM_SYMBOLS, dtype=np.int64)
+    fin = np.asarray(freqs, dtype=np.int64)
+    f[: fin.size] = fin
+    active = np.flatnonzero(f > 0)
+    n = active.size
+    if n == 0:
+        raise TableError("no symbols with nonzero frequency")
+    if n == 1:
+        lens = np.zeros(NUM_SYMBOLS, dtype=np.int32)
+        lens[active[0]] = 1
+        return lens
+    if (1 << max_len) < n:
+        raise TableError(f"{n} symbols cannot fit in {max_len}-bit codes")
+
+    # Level l holds items of width 2^-l; adjacent pairs of a level's items
+    # make the packages of the level above. Each item counts how often each
+    # leaf takes part in it; a leaf's code length is its count over the
+    # cheapest 2n - 2 items of the top level.
+    leaves = sorted((int(f[s]), s) for s in active)
+    leaf_weights = [w for w, _ in leaves]
+    leaf_syms = [s for _, s in leaves]
+
+    def merge_level(packages):
+        """Merge the leaves with the packages (both sorted by weight)."""
+        items = []
+        i = j = 0
+        while i < n or j < len(packages):
+            take_leaf = j >= len(packages) or (
+                i < n and leaf_weights[i] <= packages[j][0]
+            )
+            if take_leaf:
+                cnt = np.zeros(n, dtype=np.int32)
+                cnt[i] = 1
+                items.append((leaf_weights[i], cnt))
+                i += 1
+            else:
+                items.append(packages[j])
+                j += 1
+        return items
+
+    packages: list = []
+    for _ in range(max_len):
+        items = merge_level(packages)
+        packages = [
+            (items[2 * k][0] + items[2 * k + 1][0],
+             items[2 * k][1] + items[2 * k + 1][1])
+            for k in range(len(items) // 2)
+        ]
+    counts = np.zeros(n, dtype=np.int32)
+    for _w, cnt in items[: 2 * n - 2]:
+        counts += cnt
+    lens = np.zeros(NUM_SYMBOLS, dtype=np.int32)
+    for k in range(n):
+        lens[leaf_syms[k]] = int(counts[k])
+    return lens
+
+
+def build_table(
+    data: bytes | np.ndarray | None = None,
+    freqs: Sequence[int] | np.ndarray | None = None,
+    max_len: int = 16,
+    name: str = "built",
+) -> HuffmanTable:
+    """An optimal length-limited canonical table from ``data``'s histogram
+    or from ``freqs`` (pass exactly one). Symbols absent from the corpus
+    get no code: encoding them raises UnknownSymbolError."""
+    if (data is None) == (freqs is None):
+        raise TableError("pass exactly one of data / freqs")
+    if data is not None:
+        arr = (
+            np.frombuffer(bytes(data), dtype=np.uint8)
+            if isinstance(data, (bytes, bytearray))
+            else np.asarray(data, dtype=np.uint8)
+        )
+        freqs = np.bincount(arr, minlength=NUM_SYMBOLS)
+    lens = optimal_code_lengths(freqs, max_len=max_len)
+    return make_canonical(lens.tolist(), name=name)
+
+
+def safe_eos_padding(table: HuffmanTable) -> int | None:
+    """An eos_padding byte whose padding bits can never decode as a symbol.
+
+    The reference pads the final partial byte with the low ``8 - (bits %
+    8)`` bits of ``eos_padding`` and leaves validating them to the caller,
+    so where all-ones padding completes a short code, a decode with no
+    index emits spurious tail symbols. This returns the first byte whose
+    every padding tail (1..7 bits, MSB-first) matches no complete code, or
+    None when there is none (e.g. Kraft-complete tables whose codes are all
+    <= 7 bits).
+    """
+    for eos in range(256):
+        ok = True
+        for k in range(1, 8):
+            pad = eos & ((1 << k) - 1)
+            window = (pad << (32 - k)) & 0xFFFFFFFF
+            _sym, bits_read = table.decode_window(window)
+            if 0 < bits_read <= k:
+                ok = False
+                break
+        if ok:
+            return eos
+    return None
 
 
 def load_static_test_table() -> HuffmanTable:

@@ -138,11 +138,32 @@ Phases (any failure raises and the script exits non-zero):
      launches one count, pack and chain_decode a non-empty shard (NCCL is
      not verified: it runs one rank a card); then wall and device busy of
      MeshCodec.encode/decode at 64 MiB on 1 and 4 shards beside
-     encode_with_index/decode_indexed.
+     encode_with_index/decode_indexed;
+ 12. the fixed-size step (tpu_huffman_torch.ops.encode.best_encode_step,
+     the bench's seam) at 65536 symbols and 8 MiB of random bytes (seed
+     2024) on the static, HPACK and 5-30-bit tables (bench_suite's
+     make_canonical(mixed_lengths_5_30()), taken from its source), with
+     the launch counters reset before each step (one count and one pack
+     each): its bytes equal the port's C++ oracle's (tpu_huffman_torch.oracle,
+     built by g++ here; a failed build fails the phase), words past the pad
+     zero; the pack's device-total form against pack_plain with the total
+     as a 0-d tensor at every pad_len 0-7 on each table and size, into
+     words filled with junk; encode_fn with no host sync (under
+     set_sync_debug_mode "warn", beside the warnings around no call, and
+     under "error"), captured in a CUDA graph whose replays equal the eager
+     step; finalize_fn raising at tt.encode's (index, symbol); the entry
+     twin's entry() and dryrun_multichip(8); both example twins with
+     --device cuda in subprocesses; then the step at 8 MiB by events, the
+     card alone and a graph replay beside encode_with_index's device
+     stages, the device-total pack beside the by-value form, its plain
+     version and its bound, and the oracle's encode and decode GB/s on one
+     host core, each printed with the card's name and power limit.
 
 The last line is one JSON object {"ok": true, "device": {...}}; the line
 before it is the {"kernels": [...]} summary (count, pack and chain_decode
-list every path that launched them, with its launches, under "paths"),
+list every path that launched them, with its launches, under "paths"; the
+pack's device-total form and the step's timings are under the pack's
+"device_total" and "best_encode_step"),
 with each kernel's bound: the
 larger of the bytes it must move (each input read once, each output written
 once) over 3.35 TB/s and its integer operations over 67 T/s (the card's
@@ -157,6 +178,7 @@ from __future__ import annotations
 import ast
 import collections
 import concurrent.futures
+import itertools
 import json
 import multiprocessing
 import os
@@ -183,19 +205,30 @@ OPS_PER_SYMBOL = {"encode_count": 5, "encode_pack": 12, "chain_decode": 10,
                   "selfsync_decode": 10, "selfsync_decode_starts": 11, "stream_decode": 10}
 
 
-def hpack_corpus(n: int) -> bytes:
-    """``bench_suite.hpack_header_corpus``, taken from its source: importing
+def _bench_suite_fn(name: str):
+    """A function of ``bench_suite.py``, taken from its source: importing
     bench_suite would run its JAX compile-cache set-up."""
     path = os.path.join(ROOT, "bench_suite.py")
     with open(path) as f:
         tree = ast.parse(f.read())
     fn = next(
         node for node in tree.body
-        if isinstance(node, ast.FunctionDef) and node.name == "hpack_header_corpus"
+        if isinstance(node, ast.FunctionDef) and node.name == name
     )
     ns = {"np": np}
     exec(compile(ast.Module(body=[fn], type_ignores=[]), path, "exec"), ns)
-    return ns["hpack_header_corpus"](n)
+    return ns[name]
+
+
+def hpack_corpus(n: int) -> bytes:
+    """``bench_suite.hpack_header_corpus``."""
+    return _bench_suite_fn("hpack_header_corpus")(n)
+
+
+def mixed_lengths_5_30() -> dict:
+    """``bench_suite.mixed_lengths_5_30``: the code lengths of its 5-30-bit
+    table (``make_canonical`` of them is its table_5_30 config)."""
+    return _bench_suite_fn("mixed_lengths_5_30")()
 
 
 def _golden():
@@ -286,6 +319,20 @@ def _host_ms_by_function(fn, calls: int = 8, top: int = 6) -> list:
     rows = sorted(((v[2], k) for k, v in stats.items()), reverse=True)[:top]
     return [(k[2] if k[0] == "~" else f"{os.path.basename(k[0])}:{k[2]}", t * 1e3 / calls)
             for t, k in rows]
+
+
+def sync_sites(torch, fn) -> list:
+    """The file:line of each host sync fn() makes (each synchronising CUDA
+    call warns under torch.cuda.set_sync_debug_mode("warn"))."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return ["/".join(w.filename.split("/")[-2:]) + f":{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
 
 
 def _bound(nbytes: int, ops: int) -> tuple[float, str]:
@@ -1611,6 +1658,345 @@ def phase_mesh(torch, tt, table, dev, smi: str, corpus: bytes, mb: int = 64) -> 
             "timings": timings, "max_abs_err": errs}
 
 
+STEP_SIZES = (65536, 8 * MIB)  # the entry's step, and bench.py's 8 MiB
+EXAMPLES = {"hpack_headers": "rejected", "mesh_pipeline": "capped streaming decode ok"}
+EXAMPLE_TIMEOUT = 300  # seconds an example may take
+
+
+def with_pad_len(data: np.ndarray, lengths: np.ndarray, pad_len: int) -> np.ndarray:
+    """``data`` (uint8) with its last two symbols (its one symbol) picked so
+    that the codes leave ``pad_len`` bits of EOS padding."""
+    out = data.copy()
+    tail = min(out.size, 2)
+    head = int(lengths[out[:-tail]].astype(np.int64).sum())
+    coded = [int(c) for c in np.flatnonzero(lengths)]
+    picks = itertools.product(coded, repeat=tail)
+    for pick in picks:
+        if (head + sum(int(lengths[c]) for c in pick) + pad_len) % 8 == 0:
+            out[-tail:] = pick
+            return out
+    raise AssertionError(f"no {tail} codes leave a pad of {pad_len} bits")
+
+
+def phase_step(torch, tt, static, hpack, dev, smi: str, data8: bytes) -> dict:
+    """Phase 12: best_encode_step, its device-total pack, the oracle, the
+    entry twin and the examples (see the module docstring). Returns the
+    step path's launches and the numbers for the kernels line."""
+    from tpu_huffman_torch import oracle
+
+    t0 = time.perf_counter()
+    # the oracle is built here and must load: a failed g++ raises
+    oracle._load()
+    print(f"phase 12 oracle library {oracle._LIB_PATH} ready in "
+          f"{time.perf_counter() - t0:.2f} s")
+    tables = (static, hpack, tt.make_canonical(mixed_lengths_5_30(), name="mixed_5_30"))
+    full = np.frombuffer(data8, dtype=np.uint8)
+    launches, per_step, steps = step_paths(torch, tt, oracle, tables, dev, full)
+    err = device_total_checks(torch, tables, dev, full)
+    encode_fn, sym = steps[static.name, STEP_SIZES[-1]]
+    other = torch.from_numpy(with_pad_len(full[::-1].copy(), static.lengths, 3)).to(dev)
+    graph = sync_free_and_graph(torch, encode_fn, sym, other)
+    finalize_checks(torch, tt, dev)
+    entry_checks(oracle, static, dev)
+    run_examples()
+    timed = step_timings(torch, static, dev, smi, steps, graph)
+    o_enc, o_dec = oracle_gbs(oracle, static, data8)
+    print(f"phase 12 [{smi}] oracle on one host core at 8 MiB (static): encode "
+          f"{o_enc:.4f} GB/s, decode {o_dec:.4f} GB/s (median of 5, host clock)")
+    timed["device_total"].update(launches_per_step=max(per_step),
+                                 launches=launches["encode_pack"], max_abs_err=err)
+    timed["best_encode_step"].update(oracle_encode_gbs=o_enc, oracle_decode_gbs=o_dec)
+    print(f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, **timed}
+
+
+def run_examples() -> None:
+    """The two example twins on the card, one after the other: each must
+    exit 0 and print its line."""
+    for name, line in EXAMPLES.items():
+        proc = subprocess.run(
+            [sys.executable, "-m", f"tpu_huffman_torch.examples.{name}", "--device", "cuda"],
+            cwd=ROOT, stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True, timeout=EXAMPLE_TIMEOUT)
+        if proc.returncode != 0 or line not in proc.stdout:
+            raise AssertionError(f"example {name} failed ({proc.returncode}):\n{proc.stdout}")
+        print(f"phase 12 example {name} --device cuda ok: "
+              + " | ".join(ln for ln in proc.stdout.splitlines() if ln.strip()))
+
+
+def step_paths(torch, tt, oracle, tables, dev, full: np.ndarray) -> tuple:
+    """best_encode_step on each table at each of STEP_SIZES, with the launch
+    counters reset just before each step and read just after: bytes equal
+    the oracle's, zeros past the pad, finalize_fn the same. Returns (the
+    launches summed, each step's pack launches, {(table name, n):
+    (encode_fn, symbols)})."""
+    from tpu_huffman_torch.ops import pack_encode
+    from tpu_huffman_torch.ops.bitpack import bytes_from_words_np
+    from tpu_huffman_torch.ops.encode import best_encode_step
+
+    launches, per_step, steps = {}, [], {}
+    for table in tables:
+        otable = oracle.OracleTable(table)
+        for n in STEP_SIZES:
+            data = full[:n]
+            sym = torch.from_numpy(data.copy()).to(dev)
+            encode_fn, finalize_fn = best_encode_step(table, n, device=dev)
+            _reset(pack_encode.launches)
+            words, total, padded = encode_fn(sym)
+            _sync(torch, dev)
+            ran = dict(pack_encode.launches)
+            if ran != {"encode_count": 1, "encode_pack": 1}:
+                raise AssertionError(f"step {table.name} n={n}: launches {ran}, not one "
+                                     f"count and one pack")
+            for k, v in ran.items():
+                launches[k] = launches.get(k, 0) + v
+            per_step.append(ran["encode_pack"])
+            n_words = -(-n * int(table.max_len) // 32) + 1
+            padded_bits = int(padded)
+            want = oracle.OracleEncoder(otable).encode(data.tobytes())
+            got = bytes_from_words_np(words.cpu().numpy(), padded_bits // 8)
+            tail_zero = not bool(words[(padded_bits + 31) // 32:].any())
+            if (words.shape != (n_words,) or got != want or not tail_zero
+                    or int(total) != int(table.lengths[data].astype(np.int64).sum())):
+                raise AssertionError(f"step {table.name} n={n}: bytes equal the oracle's "
+                                     f"{got == want}, zeros past the pad {tail_zero}")
+            fin = finalize_fn(sym)
+            if not all(torch.equal(a, b) for a, b in zip(fin, (words, total, padded))):
+                raise AssertionError(f"step {table.name} n={n}: finalize_fn differs")
+            steps[table.name, n] = (encode_fn, sym)
+            print(f"phase 12 best_encode_step {table.name} n={n}: bytes equal the port "
+                  f"oracle's ({padded_bits // 8} bytes, {int(total)} bits, W={n_words}), "
+                  f"zeros past the pad; launches {ran}")
+    return launches, per_step, steps
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def device_total_checks(torch, tables, dev, full: np.ndarray) -> int:
+    """The device-total pack against pack_plain (the total as a 0-d tensor)
+    at every pad_len 0-7, each table and each of STEP_SIZES, into words
+    filled with junk. Returns the max_abs_err (raises unless 0)."""
+    from tpu_huffman_torch.ops import pack_encode
+    from tpu_huffman_torch.ops.encode import DeviceTable
+    from tpu_huffman_torch.prof import max_abs_err
+
+    err, checks = 0, 0
+    for table in tables:
+        dt = DeviceTable.for_table(table, dev)
+        for n in STEP_SIZES:
+            n_words = -(-n * int(table.max_len) // 32) + 1
+            for pad_len in range(8):
+                sym = torch.from_numpy(with_pad_len(full[:n], table.lengths, pad_len)).to(dev)
+                tile_bits, _stats = pack_encode.count(sym, dt)
+                incl = torch.cumsum(tile_bits, 0, dtype=torch.int64)
+                offs = incl - tile_bits
+                junk = torch.full((n_words,), JUNK, dtype=torch.int32, device=dev)
+                got = pack_encode.pack_device_total(sym, dt, offs, incl[-1], 0xFF, n_words,
+                                                    256, out=junk)
+                want_w, want_o = pack_encode.pack_plain(sym, dt, offs, incl[-1], 0xFF,
+                                                        n_words, 256)
+                want_p = incl[-1] + pack_encode.pad_code(incl[-1], 0xFF)[1]
+                _sync(torch, dev)
+                e = max(max_abs_err(got[0], want_w), max_abs_err(got[1], want_o),
+                        max_abs_err(got[2], want_p))
+                if int(got[2]) - int(incl[-1]) != pad_len:
+                    raise AssertionError(f"pad_len {pad_len}: padded - total = "
+                                         f"{int(got[2]) - int(incl[-1])}")
+                err, checks = max(err, e), checks + 1
+    if err:
+        raise AssertionError(f"device-total pack differs from pack_plain: {err}")
+    print(f"phase 12 device-total pack against pack_plain (total as a 0-d tensor): "
+          f"max_abs_err {err} over {checks} launches ({len(tables)} tables x n {STEP_SIZES} x "
+          f"pad_len 0-7, into junk-filled words)")
+    return err
+
+
+def capture(torch, fn, x) -> tuple:
+    """fn(x) captured in a CUDA graph after two warm-up calls on a side
+    stream. Returns (graph, the captured outputs); replays rewrite them."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn(x)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn(x)
+    return graph, out
+
+
+def sync_free_and_graph(torch, encode_fn, sym, other):
+    """encode_fn makes no host sync and runs under set_sync_debug_mode
+    ("error"); captured in a CUDA graph, its replays equal the eager step
+    on the captured input and on ``other`` copied into it. Returns the
+    graph."""
+    eager = encode_fn(sym)
+    torch.cuda.synchronize()
+    # the sites that warn with nothing between the mode's switches are the
+    # switches' own
+    idle = sync_sites(torch, lambda: None)
+    syncs = sync_sites(torch, lambda: encode_fn(sym))
+    extra = list((collections.Counter(syncs) - collections.Counter(idle)).elements())
+    if extra:
+        raise AssertionError(f"encode_fn synchronised at {extra} (with nothing between the "
+                             f"mode's switches: {idle})")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        encode_fn(sym)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print(f"phase 12 encode_fn: 0 host syncs (set_sync_debug_mode 'warn': {len(syncs)} "
+          f"warnings around the call, {len(idle)} around no call: {', '.join(idle)}), and it "
+          f"runs under set_sync_debug_mode('error')")
+    g_in = sym.clone()
+    graph, g_out = capture(torch, encode_fn, g_in)
+    graph.replay()
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(g_out, eager))
+    g_in.copy_(other)
+    graph.replay()
+    want_other = encode_fn(other)
+    torch.cuda.synchronize()
+    same_other = all(torch.equal(a, b) for a, b in zip(g_out, want_other))
+    if not (same and same_other):
+        raise AssertionError(f"CUDA graph replay differs from the eager step: {same}, "
+                             f"{same_other}")
+    print("phase 12 encode_fn captured in a CUDA graph: replays equal the eager step on the "
+          "captured input and on new bytes copied into it")
+    return graph
+
+
+def finalize_checks(torch, tt, dev) -> None:
+    """finalize_fn raises UnknownSymbolError at the first unknown symbol of
+    a partial table, at tt.encode's (index, symbol)."""
+    from tpu_huffman_torch.ops.encode import best_encode_step
+
+    ab = tt.make_canonical({65: 1, 66: 2})
+    for n, at in ((STEP_SIZES[0], 40000), (STEP_SIZES[-1], 5 * STEP_SIZES[-1] // 8 + 3)):
+        bad = bytearray(b"AB" * (n // 2))
+        bad[at], bad[-1] = 67, 68
+        _fn, finalize_fn = best_encode_step(ab, n, device=dev)
+        got = want = None
+        try:
+            finalize_fn(torch.frombuffer(bad, dtype=torch.uint8).to(dev))
+        except tt.UnknownSymbolError as exc:
+            got = (exc.index, exc.symbol)
+        try:
+            tt.encode(bytes(bad), ab, device=dev)
+        except tt.UnknownSymbolError as exc:
+            want = (exc.index, exc.symbol)
+        if not got == want == (at, 67):
+            raise AssertionError(f"finalize_fn raised at {got}, encode at {want}")
+        print(f"phase 12 finalize_fn n={n}: UnknownSymbolError{got}, as tt.encode")
+
+
+def entry_checks(oracle, static, dev) -> None:
+    """entry() once, its bytes against the oracle's; dryrun_multichip(8)."""
+    from tpu_huffman_torch import entry
+    from tpu_huffman_torch.ops.bitpack import bytes_from_words_np
+
+    fn, (e_sym,) = entry.entry(dev)
+    words, _total, padded = fn(e_sym)
+    if bytes_from_words_np(words.cpu().numpy(), int(padded) // 8) != oracle.oracle_encode(
+            e_sym.cpu().numpy().tobytes(), static):
+        raise AssertionError("entry(): bytes differ from the oracle's")
+    entry.dryrun_multichip(8, dev)
+    print(f"phase 12 entry() ok ({e_sym.numel()} symbols on {e_sym.device}, "
+          f"{int(padded) // 8} bytes equal the oracle's); dryrun_multichip(8) ok on "
+          f"{sorted(set(map(str, entry.mesh_devices(8, dev))))}")
+
+
+def oracle_gbs(oracle, table, data: bytes, reps: int = 5) -> tuple:
+    """The oracle's encode and decode of ``data`` on one host core, GB/s of
+    plaintext (median of ``reps``, host clock): the bench's baseline."""
+    otable = oracle.OracleTable(table)
+    o_enc, o_dec = oracle.OracleEncoder(otable), oracle.OracleDecoder(otable)
+    stream = o_enc.encode(data)
+    enc_s, dec_s = [], []
+    for _ in range(reps):
+        o_enc.reset()
+        t1 = time.perf_counter()
+        o_enc.encode(data)
+        enc_s.append(time.perf_counter() - t1)
+        o_dec.reset()
+        t1 = time.perf_counter()
+        back = o_dec.decode(stream)
+        dec_s.append(time.perf_counter() - t1)
+    if back != data:
+        raise AssertionError("oracle decode differs from the input")
+    return (len(data) / statistics.median(enc_s) / 1e9,
+            len(data) / statistics.median(dec_s) / 1e9)
+
+
+def step_timings(torch, static, dev, smi: str, steps: dict, graph) -> dict:
+    """The step alone at 8 MiB (events; the card alone behind a sleep
+    kernel; a graph replay) beside encode_with_index's device stages, and
+    the device-total pack beside the by-value form, its plain version and
+    its bound."""
+    from tpu_huffman_torch.ops import pack_encode
+    from tpu_huffman_torch.ops.encode import DeviceTable, _encode_device
+    from tpu_huffman_torch.prof import kernel_ms, median_ms
+
+    n = STEP_SIZES[-1]
+    encode_fn, sym = steps[static.name, n]
+    dt = DeviceTable.for_table(static, dev)
+    n_words = -(-n * int(static.max_len) // 32) + 1
+    tile_bits, _stats = pack_encode.count(sym, dt)
+    incl = torch.cumsum(tile_bits, 0, dtype=torch.int64)
+    offs = incl - tile_bits
+    total = int(incl[-1])
+    step_fn = lambda: encode_fn(sym)  # noqa: E731
+    pack_fn = lambda: pack_encode.pack_device_total(  # noqa: E731
+        sym, dt, offs, incl[-1], 0xFF, n_words, 256)
+    by_value_fn = lambda: pack_encode.pack(  # noqa: E731
+        sym, dt, offs, total, 0xFF, n_words, 256)
+    plain_fn = lambda: pack_encode.pack_plain(  # noqa: E731
+        sym, dt, offs, incl[-1], 0xFF, n_words, 256)
+    stages_fn = lambda: _encode_device(sym, dt, 0xFF, 256)  # noqa: E731
+    s1, d1, d2, s2 = (median_ms(f) for f in (step_fn, stages_fn, stages_fn, step_fn))
+    card_ms = kernel_ms({"step": step_fn, "device-total pack": pack_fn,
+                         "by-value pack": by_value_fn})
+    p1, k1, k2, p2 = (median_ms(f) for f in (plain_fn, pack_fn, pack_fn, plain_fn))
+    alone = _profiled_kernel_ms(torch, {"encode_pack": pack_fn}).get("encode_pack")
+    # the symbols read once; the words, block offsets and padded length
+    # written once; the total read once
+    bound = _bound(n + 4 * n_words + 8 * -(-n // 256) + 16, OPS_PER_SYMBOL["encode_pack"] * n)
+    graph_ms = median_ms(graph.replay)
+    small_fn, small_sym = steps[static.name, STEP_SIZES[0]]
+    small_ms = median_ms(lambda: small_fn(small_sym))
+    small_graph_ms = median_ms(capture(torch, small_fn, small_sym)[0].replay)
+    by_table = kernel_ms({name: (lambda fn=fn, x=x: fn(x))
+                          for (name, size), (fn, x) in steps.items() if size == n})
+    gbs = lambda ms: n / (ms * 1e-3) / 1e9  # noqa: E731
+    print(f"phase 12 [{smi}] best_encode_step at 8 MiB (static): {s1:.4f} / {s2:.4f} ms by "
+          f"events ({gbs(min(s1, s2)):.2f} GB/s), the card alone {card_ms['step']:.4f} ms; "
+          f"a CUDA graph replay {graph_ms:.4f} ms; encode_with_index's device stages (count, "
+          f"cumsum, host read, pack) {d1:.4f} / {d2:.4f} ms ({gbs(min(d1, d2)):.2f} GB/s); "
+          f"at {STEP_SIZES[0]} symbols the step {small_ms:.4f} ms, a graph replay "
+          f"{small_graph_ms:.4f} ms; the card alone at 8 MiB by table: "
+          + ", ".join(f"{k} {v:.4f} ms" for k, v in by_table.items()))
+    print(f"phase 12 [{smi}] device-total pack at 8 MiB: {k1:.4f} / {k2:.4f} ms by events, "
+          "alone " + (f"{alone:.4f}" if alone is not None else "not measured")
+          + f" ms (torch.profiler), the card alone {card_ms['device-total pack']:.4f} ms "
+          f"beside the by-value pack's {card_ms['by-value pack']:.4f}; plain {p1:.4f} / "
+          f"{p2:.4f} ms; bound {bound[0]:.6f} ms by {bound[1]}")
+    return {
+        "device_total": {
+            "ms": min(k1, k2), "alone_ms": alone, "card_ms": card_ms["device-total pack"],
+            "by_value_card_ms": card_ms["by-value pack"], "plain_ms": min(p1, p2),
+            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None},
+        "best_encode_step": {
+            "ms": min(s1, s2), "card_ms": card_ms["step"], "graph_replay_ms": graph_ms,
+            "device_stages_ms": min(d1, d2), f"ms_at_{STEP_SIZES[0]}": small_ms,
+            f"graph_replay_ms_at_{STEP_SIZES[0]}": small_graph_ms,
+            "card_ms_by_table": by_table},
+    }
+
+
 def main() -> int:
     import torch
 
@@ -2067,21 +2453,10 @@ def main() -> int:
     # host syncs of one decode: each synchronizing CUDA call warns in this
     # mode; beside it, the same with nothing between the mode's switches,
     # and the decode with the stitch left out (the fixpoint path)
-    def sync_sites(fn) -> list:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            torch.cuda.set_sync_debug_mode("warn")
-            try:
-                fn()
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-        return ["/".join(w.filename.split("/")[-2:]) + f":{w.lineno}" for w in caught
-                if "synchroniz" in str(w.message)]
-
     real_stitch = selfsync.stitch
     selfsync.stitch = lambda *args, **kw: None
     try:
-        fixpoint_syncs = sync_sites(lambda: tt.decode(enc8, static))
+        fixpoint_syncs = sync_sites(torch, lambda: tt.decode(enc8, static))
         fixpoint_ms = _median_wall_ms(torch, lambda: tt.decode(enc8, static))
         fixpoint_busy = sum(_device_ms_by_kernel(torch, lambda: tt.decode(enc8, static)).values())
     finally:
@@ -2090,7 +2465,8 @@ def main() -> int:
     print(f"phase 5 decode at 8 MiB with the stitch left out (the fixpoint path), in turns: "
           f"stitch {foreign_ms:.3f}, fixpoint {fixpoint_ms:.3f} ms (device busy "
           f"{fixpoint_busy:.4f}), stitch {stitch_ms2:.3f} ms wall")
-    idle_syncs, syncs = sync_sites(lambda: None), sync_sites(lambda: tt.decode(enc8, static))
+    idle_syncs = sync_sites(torch, lambda: None)
+    syncs = sync_sites(torch, lambda: tt.decode(enc8, static))
     forms["host_syncs_per_decode"] = len(syncs) - len(idle_syncs)
     print(f"phase 5 host syncs of one 8 MiB decode (torch.cuda.set_sync_debug_mode): "
           f"{len(syncs)} ({', '.join(syncs)}), of which {len(idle_syncs)} with no call between "
@@ -2158,6 +2534,7 @@ def main() -> int:
     corpus = corpus_job.result()
     corpus_pool.shutdown()
     mesh = phase_mesh(torch, tt, static, dev, smi, corpus)
+    step = phase_step(torch, tt, static, hpack, dev, smi, data8)
 
     kernels = [
         {"name": "encode_count", "route": "cuda",
@@ -2166,7 +2543,8 @@ def main() -> int:
         {"name": "encode_pack", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/pack_encode.cu",
          "replaces": "tpu_huffman/ops/pallas_encode.py:155",
-         "block_symbols_100": pack_100},
+         "block_symbols_100": pack_100, "device_total": step["device_total"],
+         "best_encode_step": step["best_encode_step"]},
         {"name": "chain_decode", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/chain_decode.cu",
          "replaces": "tpu_huffman/ops/pallas_decode.py:688",
@@ -2184,6 +2562,7 @@ def main() -> int:
          "walk_vs_selfsync_ms": crossover,
          "streaming_16k": streaming_small},
     ]
+    errs["encode_pack"] = max(errs["encode_pack"], step["device_total"]["max_abs_err"])
     for k in kernels:
         if k["name"] in mesh["max_abs_err"]:
             errs[k["name"]] = max(errs[k["name"]], mesh["max_abs_err"][k["name"]])
@@ -2193,6 +2572,9 @@ def main() -> int:
                              for name, got in mesh["paths"].items()},
                           "encode_global / decode_global, 2 processes (phase 11)": {
                               n: rep["launches_by_rank"] for n, rep in mesh["processes"].items()}}
+            if k["name"] in step["launches"]:
+                k["paths"]["best_encode_step, 3 tables x 2 sizes (phase 12)"] = (
+                    step["launches"][k["name"]])
         bound_ms, bound_by = _bound(*work[k["name"]])
         # No single PyTorch call computes any of these functions.
         k.update(launches=launches[k["name"]], max_abs_err=errs[k["name"]],

@@ -94,7 +94,9 @@ def test_import_leaves_jax_out():
         " tpu_huffman_torch.prof.mma_lut, tpu_huffman_torch.prof.latency,"
         " tpu_huffman_torch.prof.pack_ablate, tpu_huffman_torch.shard,"
         " tpu_huffman_torch.distributed, tpu_huffman_torch.corpora,"
-        " tpu_huffman_torch.metrics, tpu_huffman_torch.huffgen;"
+        " tpu_huffman_torch.metrics, tpu_huffman_torch.huffgen, tpu_huffman_torch.oracle,"
+        " tpu_huffman_torch.entry, tpu_huffman_torch.examples.hpack_headers,"
+        " tpu_huffman_torch.examples.mesh_pipeline;"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'tpu_huffman')];"
         "assert not bad, bad"
     )

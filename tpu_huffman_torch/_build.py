@@ -41,9 +41,10 @@ SIGNATURES = {
     # device, syms, n, lengths, tile_bits, stats, stream
     "thc_encode_count": (_I32, _P, _I64, _P, _P, _P, _P),
     # device, syms, n, patterns, lengths, tile_offs, total_bits,
-    # eos_padding, words, n_words, block_symbols, block_offs (or null), stream
+    # eos_padding, words, n_words, block_symbols, block_offs (or null),
+    # total_dev (or null), padded_out (or null), stream
     "thc_encode_pack": (
-        _I32, _P, _I64, _P, _P, _P, _I64, _I32, _P, _I64, _I64, _P, _P,
+        _I32, _P, _I64, _P, _P, _P, _I64, _I32, _P, _I64, _I64, _P, _P, _P, _P,
     ),
     # device, words, n_words, bit_offs, n_syms, out_start, n_blocks, l0,
     # root_bits, l1, l1_size, max_len, out, end_bits, bad, stream

@@ -23,6 +23,14 @@
 //          same scan.
 // The 256 (pattern, length) pairs sit in shared memory.
 //
+// Two ways to get the stream's length, in one kernel: by value (the host
+// has read it, as encode and encode_with_index do), or from device memory
+// (`total_dev`, the inclusive prefix's last element: the fixed-size step
+// of best_encode_step, which never synchronises with the host). Either
+// way the last tile places the EOS pad at its end, words past the pad up
+// to n_words are zeros (written by every block, a grid-stride share
+// each), and `padded_out`, where given, gets the padded length.
+//
 // Bound: bytes. The symbols are read once, each output word and block
 // offset written once (the head codes re-read at most 32 bytes a tile).
 // The tile base and word indices are int64, so one launch takes a stream
@@ -99,16 +107,27 @@ __global__ void __launch_bounds__(kTileThreads)
                        long long n_tiles, long long total_bits,
                        unsigned eos_padding, unsigned* __restrict__ words,
                        long long n_words, long long block_symbols,
-                       long long* __restrict__ block_offs) {
+                       long long* __restrict__ block_offs,
+                       const long long* __restrict__ total_dev,
+                       long long* __restrict__ padded_out) {
   __shared__ unsigned s_pat[256];
   __shared__ int s_len[256];
   __shared__ unsigned s_buf[kTileWords];
   __shared__ int s_warp[kTileWarps];
   thc::pack_tile_setup(patterns, lengths, s_pat, s_len, s_buf);
+  const long long total = total_dev != nullptr ? *total_dev : total_bits;
+  const long long padded = total + ((8 - (total & 7)) & 7);
+  // The words up to the pad's end go to their tiles; the rest are zeros.
+  const long long stream_words = min(n_words, (padded + 31) >> 5);
+  for (long long g = stream_words + blockIdx.x * (long long)kTileThreads + threadIdx.x;
+       g < n_words; g += (long long)gridDim.x * kTileThreads) {
+    words[g] = 0u;
+  }
+  if (padded_out != nullptr && blockIdx.x == 0 && threadIdx.x == 0) *padded_out = padded;
   const long long tile = blockIdx.x;
   thc::pack_tile(syms, n, tile, n_tiles, ((uintptr_t)syms & 15) == 0, s_pat,
-                 s_len, tile_offs[tile], total_bits, eos_padding, words,
-                 n_words, block_symbols, block_offs, s_buf, s_warp);
+                 s_len, tile_offs[tile], total, eos_padding, words,
+                 stream_words, block_symbols, block_offs, s_buf, s_warp);
 }
 
 }  // namespace
@@ -137,12 +156,15 @@ int thc_encode_count(int device, const void* syms, long long n,
 // count's tile totals, shifted by any carry before the stream). words need
 // no fill: all n_words >= ceil((total_bits + pad) / 32) words are written.
 // block_offs (or null with block_symbols 0) gets ceil(n / block_symbols)
-// int64 bit offsets.
+// int64 bit offsets. total_dev (or null: total_bits is used) is an int64
+// in device memory that holds the stream's length in place of total_bits;
+// padded_out (or null) gets the length with the pad (int64).
 int thc_encode_pack(int device, const void* syms, long long n,
                     const void* patterns, const void* lengths,
                     const void* tile_offs, long long total_bits,
                     int eos_padding, void* words, long long n_words,
-                    long long block_symbols, void* block_offs, void* stream) {
+                    long long block_symbols, void* block_offs,
+                    const void* total_dev, void* padded_out, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const long long n_tiles = (n + kTile - 1) / kTile;
@@ -150,7 +172,8 @@ int thc_encode_pack(int device, const void* syms, long long n,
                        (cudaStream_t)stream>>>(
       (const uint8_t*)syms, n, (const unsigned*)patterns, (const int*)lengths,
       (const long long*)tile_offs, n_tiles, total_bits, (unsigned)eos_padding,
-      (unsigned*)words, n_words, block_symbols, (long long*)block_offs);
+      (unsigned*)words, n_words, block_symbols, (long long*)block_offs,
+      (const long long*)total_dev, (long long*)padded_out);
   return (int)cudaGetLastError();
 }
 

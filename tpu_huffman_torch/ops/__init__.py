@@ -1,7 +1,13 @@
 """Encode, indexed decode and foreign-stream decode on torch tensors, with
 their CUDA kernels (ports ``tpu_huffman/ops/``)."""
 
-from .bitpack import bytes_to_words, extract_windows, words_to_bytes
+from .bitpack import (
+    bytes_from_words_np,
+    bytes_to_words,
+    extract_windows,
+    words_from_bytes_np,
+    words_to_bytes,
+)
 from .decode import (
     STATUS_OK,
     STATUS_OUTPUT_FULL,
@@ -28,6 +34,7 @@ __all__ = [
     "STATUS_OK",
     "STATUS_OUTPUT_FULL",
     "STATUS_UNKNOWN_SYMBOL",
+    "bytes_from_words_np",
     "bytes_to_words",
     "decode",
     "decode_indexed",
@@ -36,5 +43,6 @@ __all__ = [
     "extract_windows",
     "get_encoded_length",
     "lut_lookup",
+    "words_from_bytes_np",
     "words_to_bytes",
 ]

@@ -1,5 +1,6 @@
 """Bit stream <-> word tensors (ports ``tpu_huffman/ops/bitpack.py`` and the
-on-device byteswap ``selfsync._words_from_u8_dev``).
+on-device byteswap ``selfsync._words_from_u8_dev``), and the same on the
+host in numpy (``words_from_bytes_np``, ``bytes_from_words_np``).
 
 Stream bit ``j`` lives in word ``j >> 5`` at bit ``31 - (j & 31)``, and the
 words serialise big-endian, as in the JAX package. torch's ``uint32`` lacks
@@ -10,9 +11,37 @@ result back to 32 bits.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
+
+
+def words_from_bytes_np(data) -> tuple[np.ndarray, int]:
+    """Pack bytes into big-endian uint32 words (host side). Returns
+    (words, nbytes); the last word is zero-padded."""
+    if isinstance(data, (bytes, bytearray)):
+        b = np.frombuffer(bytes(data), dtype=np.uint8)
+    else:
+        b = np.asarray(data, dtype=np.uint8)
+    nbytes = b.size
+    pad = (-nbytes) % 4
+    if pad:
+        b = np.concatenate([b, np.zeros(pad, dtype=np.uint8)])
+    words = b.reshape(-1, 4).astype(np.uint32)
+    return (words[:, 0] << 24) | (words[:, 1] << 16) | (words[:, 2] << 8) | words[:, 3], nbytes
+
+
+def bytes_from_words_np(words, nbytes: int) -> bytes:
+    """The first ``nbytes`` bytes of big-endian uint32 words (host side).
+    int32 words, as the port's tensors hold them, give the same bytes."""
+    w = np.asarray(words).astype(np.uint32)
+    out = np.empty((w.size, 4), dtype=np.uint8)
+    out[:, 0] = (w >> 24) & 0xFF
+    out[:, 1] = (w >> 16) & 0xFF
+    out[:, 2] = (w >> 8) & 0xFF
+    out[:, 3] = w & 0xFF
+    return out.reshape(-1)[:nbytes].tobytes()
 
 
 def bytes_to_words(b: torch.Tensor) -> torch.Tensor:

@@ -7,6 +7,11 @@ symbol back in one transfer, and run the pack kernel
 (``ops/pack_encode.py``). The bytes are bit-identical to the reference
 encoder's, including the EOS padding of the final partial byte; the block
 index is the pack's block offsets, from its own scan over each tile.
+
+``best_encode_step`` is the fixed-size device step the bench times (the
+JAX package's bench seam): the same count, prefix and pack with the
+stream's length left on the device (``pack_encode.pack_device_total``),
+so that nothing waits for the host.
 """
 
 from __future__ import annotations
@@ -150,20 +155,29 @@ def _encode_impl(data, table, eos_padding, device) -> bytes:
     return _to_bytes(words, padded_bits)
 
 
+def _block_symbols(block_symbols: int | None) -> int:
+    """None picks DEFAULT_BLOCK_SYMBOLS (the JAX package's None picks a
+    planner's granularity, which is not a contract)."""
+    if block_symbols is None:
+        return DEFAULT_BLOCK_SYMBOLS
+    if block_symbols < 1:
+        raise ValueError(f"block_symbols must be >= 1, got {block_symbols}")
+    return block_symbols
+
+
 def encode_with_index(data, table: HuffmanTable,
                       eos_padding: int = DEFAULT_EOS_PADDING,
-                      block_symbols: int = DEFAULT_BLOCK_SYMBOLS,
+                      block_symbols: int | None = DEFAULT_BLOCK_SYMBOLS,
                       device="cuda"):
     """Encode and return (bytes, BlockIndex) for block-parallel decode.
 
     The bytes are identical to :func:`encode`; the index is side metadata:
-    the starting bit of every ``block_symbols`` symbols.
+    the starting bit of every ``block_symbols`` symbols (None: 256).
     """
     from .decode import BlockIndex  # decode imports this module
 
     dev = resolve_device(device)
-    if block_symbols < 1:
-        raise ValueError(f"block_symbols must be >= 1, got {block_symbols}")
+    block_symbols = _block_symbols(block_symbols)
     symbols = stage_bytes(data, dev)
     n = symbols.numel()
     if n == 0:
@@ -186,6 +200,72 @@ def encode_with_index(data, table: HuffmanTable,
         max_code_len=max_len,
     )
     return _to_bytes(words, padded_bits), index
+
+
+def best_encode_step(table: HuffmanTable, n: int,
+                     block_symbols: int | None = DEFAULT_BLOCK_SYMBOLS, device="cuda"):
+    """The device encode of ``n`` symbols at a fixed size (the bench seam).
+
+    Returns ``(encode_fn, finalize_fn)``:
+      encode_fn(symbols uint8[n] on the device) -> (words int32[W],
+          total_bits, padded_bits), the two lengths 0-d int64 tensors on the
+          device. The first ceil(padded_bits / 32) words are the stream (the
+          bytes of ``encode``), the rest zeros; W = ceil(n * table.max_len /
+          32) + 1 is fixed by n and the table. It launches the count and the
+          pack (which also writes the block offsets every ``block_symbols``
+          symbols, None: 256, the index's work) and never synchronises
+          with the host, so a CUDA graph can capture it. An unknown symbol
+          adds no bits and raises nothing here.
+      finalize_fn(symbols) -> the same triple, after reading the count's
+          stats: raises UnknownSymbolError(index, symbol) at the first
+          unknown symbol.
+
+    On ``device="cpu"`` both run the kernels' plain versions.
+    """
+    dev = resolve_device(device)
+    block_symbols = _block_symbols(block_symbols)
+    if n < 1:
+        raise ValueError(f"n must be >= 1, got {n}")
+    dt = DeviceTable.for_table(table, dev)
+    n_words = -(-n * int(table.max_len) // 32) + 1
+
+    def step(symbols: torch.Tensor):
+        if symbols.shape != (n,) or symbols.device != dt.lengths.device:
+            raise ValueError(f"symbols must be uint8[{n}] on {dt.lengths.device}")
+        tile_bits, stats = pack_encode.count(symbols, dt)
+        incl = torch.cumsum(tile_bits, 0, dtype=torch.int64)
+        total_bits = incl[-1]
+        words, _offs, padded_bits = pack_encode.pack_device_total(
+            symbols, dt, incl - tile_bits, total_bits, DEFAULT_EOS_PADDING, n_words,
+            block_symbols,
+        )
+        return words, total_bits, padded_bits, stats
+
+    def encode_fn(symbols: torch.Tensor):
+        return step(symbols)[:3]
+
+    def finalize_fn(symbols: torch.Tensor):
+        words, total_bits, padded_bits, stats = step(symbols)
+        first_bad = int(stats[0])
+        if first_bad < n:
+            raise UnknownSymbolError(index=first_bad, symbol=int(symbols[first_bad]))
+        return words, total_bits, padded_bits
+
+    return encode_fn, finalize_fn
+
+
+def encoded_length_bits(symbols: torch.Tensor, n_valid, table_or_dt) -> torch.Tensor:
+    """Sum of the code lengths of the first ``n_valid`` symbols (an int or a
+    0-d tensor) as a 0-d int64 tensor on the symbols' device; unknown
+    symbols add 0 (the reference's dry run). Ports the JAX package's
+    ``encoded_length_bits_kernel``, in int64 where that one sums in int32."""
+    dt = table_or_dt
+    if isinstance(table_or_dt, HuffmanTable):
+        dt = DeviceTable.for_table(table_or_dt, symbols.device)
+    symbols = symbols.reshape(-1)
+    pos = torch.arange(symbols.numel(), device=symbols.device)
+    lens = dt.lengths.to(torch.int64)[symbols.to(torch.int64)]
+    return torch.where(pos < n_valid, lens, 0).sum()
 
 
 def get_encoded_length(data, table: HuffmanTable) -> int:

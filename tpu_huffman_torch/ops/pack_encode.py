@@ -12,6 +12,10 @@ block_symbols):
 * :func:`pack` — the codes MSB-first from each tile's first bit, the EOS
   pad code at ``total_bits``, and the index's block offsets. Every output
   word is written once (the output is never filled first).
+  :func:`pack_device_total` launches the same kernel with the stream's
+  length read from device memory (the inclusive prefix's last element),
+  so that the host need not know it: the fixed-size step of
+  ``best_encode_step``, which never synchronises.
 
 Between them the caller takes the exclusive prefix over tiles with
 ``torch.cumsum`` in int64, as the JAX package takes it in XLA glue
@@ -98,15 +102,53 @@ def count_plain(symbols: torch.Tensor, dt):
     return grid.sum(1).to(torch.int32), torch.stack([first_bad, lens.max()])
 
 
-def pad_code(total_bits: int, eos_padding: int) -> tuple[int, int]:
+def pad_code(total_bits, eos_padding: int):
     """EOS padding as one left-aligned code at total_bits: the low pad_len
     bits of eos_padding, pad_len = (8 - total_bits % 8) % 8. Returns
-    (left-aligned pattern, pad_len)."""
+    (left-aligned pattern, pad_len), ints for an int ``total_bits`` and
+    int64 tensors for a tensor (no pad: both 0)."""
     pad_len = (8 - total_bits % 8) % 8
-    if pad_len == 0:
-        return 0, 0
     low = eos_padding & ((1 << pad_len) - 1)
     return (low << (32 - pad_len)) & MASK32, pad_len
+
+
+def _check_pack(symbols: torch.Tensor, dt, tile_offs: torch.Tensor, n_words: int,
+                block_symbols: int | None, out: torch.Tensor | None) -> None:
+    _check(symbols, dt)
+    if tile_offs.dtype != torch.int64 or tile_offs.numel() != n_tiles(symbols.numel()):
+        raise ValueError("tile_offs must be int64[ceil(n / TILE)]")
+    if block_symbols is not None and block_symbols < 1:
+        raise ValueError(f"block_symbols must be >= 1, got {block_symbols}")
+    if out is not None and (out.dtype != torch.int32 or out.shape != (n_words,)
+                            or not out.is_contiguous() or out.device != symbols.device):
+        raise ValueError("out must be a contiguous int32[n_words] tensor on the symbols' device")
+
+
+def _launch(symbols: torch.Tensor, dt, tile_offs: torch.Tensor, total_bits: int,
+            total_dev: torch.Tensor | None, eos_padding: int, n_words: int,
+            block_symbols: int | None, out: torch.Tensor | None,
+            padded_out: torch.Tensor | None):
+    """One launch of the pack kernel, the total by value or (``total_dev``)
+    from device memory. Returns (words, block_offs or None)."""
+    n = symbols.numel()
+    tile_offs = tile_offs.contiguous()
+    words = torch.empty(n_words, dtype=torch.int32, device=symbols.device) if out is None else out
+    block_offs = None
+    if block_symbols is not None:
+        block_offs = torch.empty(-(-n // block_symbols), dtype=torch.int64,
+                                 device=symbols.device)
+    stream = torch.cuda.current_stream(symbols.device).cuda_stream
+    err = _build.load().thc_encode_pack(
+        symbols.device.index, symbols.data_ptr(), n, dt.patterns.data_ptr(),
+        dt.lengths.data_ptr(), tile_offs.data_ptr(), total_bits, eos_padding & 0xFF,
+        words.data_ptr(), n_words, block_symbols or 0,
+        None if block_offs is None else block_offs.data_ptr(),
+        None if total_dev is None else total_dev.data_ptr(),
+        None if padded_out is None else padded_out.data_ptr(), stream,
+    )
+    _build.check("thc_encode_pack", err)
+    launches["encode_pack"] += 1
+    return words, block_offs
 
 
 def pack(symbols: torch.Tensor, dt, tile_offs: torch.Tensor, total_bits: int,
@@ -123,37 +165,47 @@ def pack(symbols: torch.Tensor, dt, tile_offs: torch.Tensor, total_bits: int,
     bit of every ``block_symbols``-th symbol (int64[ceil(n / block_symbols)]),
     or None without ``block_symbols``.
     """
-    _check(symbols, dt)
-    n = symbols.numel()
-    if tile_offs.dtype != torch.int64 or tile_offs.numel() != n_tiles(n):
-        raise ValueError("tile_offs must be int64[ceil(n / TILE)]")
+    _check_pack(symbols, dt, tile_offs, n_words, block_symbols, out)
     if 32 * n_words < total_bits + pad_code(total_bits, eos_padding)[1]:
         raise ValueError("n_words does not cover the padded stream")
-    if block_symbols is not None and block_symbols < 1:
-        raise ValueError(f"block_symbols must be >= 1, got {block_symbols}")
-    if out is not None and (out.dtype != torch.int32 or out.shape != (n_words,)
-                            or not out.is_contiguous() or out.device != symbols.device):
-        raise ValueError("out must be a contiguous int32[n_words] tensor on the symbols' device")
     if not _cuda(symbols):
         words, block_offs = pack_plain(symbols, dt, tile_offs, total_bits, eos_padding,
                                        n_words, block_symbols)
         return (words if out is None else out.copy_(words)), block_offs
-    tile_offs = tile_offs.contiguous()
-    words = torch.empty(n_words, dtype=torch.int32, device=symbols.device) if out is None else out
-    block_offs = None
-    if block_symbols is not None:
-        block_offs = torch.empty(-(-n // block_symbols), dtype=torch.int64,
-                                 device=symbols.device)
-    stream = torch.cuda.current_stream(symbols.device).cuda_stream
-    err = _build.load().thc_encode_pack(
-        symbols.device.index, symbols.data_ptr(), n, dt.patterns.data_ptr(),
-        dt.lengths.data_ptr(), tile_offs.data_ptr(), total_bits, eos_padding & 0xFF,
-        words.data_ptr(), n_words, block_symbols or 0,
-        None if block_offs is None else block_offs.data_ptr(), stream,
-    )
-    _build.check("thc_encode_pack", err)
-    launches["encode_pack"] += 1
-    return words, block_offs
+    return _launch(symbols, dt, tile_offs, total_bits, None, eos_padding, n_words,
+                   block_symbols, out, None)
+
+
+def pack_device_total(symbols: torch.Tensor, dt, tile_offs: torch.Tensor,
+                      total_bits: torch.Tensor, eos_padding: int, n_words: int,
+                      block_symbols: int | None = None, out: torch.Tensor | None = None):
+    """:func:`pack` with the stream's length as a one-element int64 tensor on
+    the symbols' device (the inclusive prefix's last element), which the
+    kernel reads there: nothing waits for the device. Returns (words,
+    block_offs or None, padded_bits), ``padded_bits`` a 0-d int64 tensor on
+    the device.
+
+    The host cannot check ``n_words`` against a length it does not read:
+    it must cover n codes of the table's longest length and the pad, as
+    ``best_encode_step``'s fixed word count does (the kernel writes no
+    word past ``n_words`` whatever the length).
+    """
+    _check_pack(symbols, dt, tile_offs, n_words, block_symbols, out)
+    if (total_bits.dtype != torch.int64 or total_bits.numel() != 1
+            or total_bits.device != symbols.device):
+        raise ValueError("total_bits must be a one-element int64 tensor on the symbols' device")
+    if 32 * n_words < symbols.numel() * int(dt.table.max_len) + 7:
+        raise ValueError("n_words does not cover n codes of the longest length and the pad")
+    total_bits = total_bits.reshape(())
+    if not _cuda(symbols):
+        words, block_offs = pack_plain(symbols, dt, tile_offs, total_bits, eos_padding,
+                                       n_words, block_symbols)
+        padded = total_bits + pad_code(total_bits, eos_padding)[1]
+        return (words if out is None else out.copy_(words)), block_offs, padded
+    padded = torch.empty((), dtype=torch.int64, device=symbols.device)
+    words, block_offs = _launch(symbols, dt, tile_offs, 0, total_bits, eos_padding, n_words,
+                                block_symbols, out, padded)
+    return words, block_offs, padded
 
 
 def symbol_starts(symbols: torch.Tensor, dt, offs: torch.Tensor, group: int) -> torch.Tensor:
@@ -163,20 +215,24 @@ def symbol_starts(symbols: torch.Tensor, dt, offs: torch.Tensor, group: int) -> 
     return (offs[:, None] + torch.cumsum(grid, 1) - grid).reshape(-1)[: symbols.numel()]
 
 
-def place_codes(symbols: torch.Tensor, dt, starts: torch.Tensor, total_bits: int,
+def place_codes(symbols: torch.Tensor, dt, starts: torch.Tensor, total_bits,
                 eos_padding: int, n_words: int) -> torch.Tensor:
     """The int32[n_words] words of each symbol's code at its first bit
-    ``starts`` and the EOS pad code at ``total_bits``: a gather, a hi/lo
-    split at the word boundary, and an int64 ``index_add_`` (codes never
-    share bits, so adding is OR)."""
+    ``starts`` and the EOS pad code at ``total_bits`` (an int, or a 0-d
+    int64 tensor): a gather, a hi/lo split at the word boundary, and an
+    int64 ``index_add_`` (codes never share bits, so adding is OR)."""
     dev = symbols.device
     idx = symbols.to(torch.int64)
     lens = dt.lengths.to(torch.int64)[idx]
     pats = u32(dt.patterns)[idx]
     p32 = torch.where(lens > 0, (pats << (32 - lens)) & MASK32, 0)
     pad_p32, _ = pad_code(total_bits, eos_padding)
-    p32 = torch.cat([p32, torch.tensor([pad_p32], dtype=torch.int64, device=dev)])
-    starts = torch.cat([starts, torch.tensor([total_bits], dtype=torch.int64, device=dev)])
+
+    def one(v):
+        return torch.as_tensor(v, dtype=torch.int64, device=dev).reshape(1)
+
+    p32 = torch.cat([p32, one(pad_p32)])
+    starts = torch.cat([starts, one(total_bits)])
     widx = starts >> 5
     sh = starts & 31
     hi = p32 >> sh
@@ -189,9 +245,10 @@ def place_codes(symbols: torch.Tensor, dt, starts: torch.Tensor, total_bits: int
     return i32(words[:n_words])
 
 
-def pack_plain(symbols: torch.Tensor, dt, tile_offs: torch.Tensor, total_bits: int,
+def pack_plain(symbols: torch.Tensor, dt, tile_offs: torch.Tensor, total_bits,
                eos_padding: int, n_words: int, block_symbols: int | None = None):
-    """Plain version of :func:`pack`: the port of the JAX package's
+    """Plain version of :func:`pack` and, with ``total_bits`` a 0-d int64
+    tensor, of :func:`pack_device_total`'s words: the port of the JAX package's
     ``encode_block_kernel_indexed`` (ops/encode.py): each symbol's first bit
     from the tile offsets and an int64 cumsum, the codes placed by
     :func:`place_codes`, and the block offsets sampled every

@@ -6,7 +6,7 @@ Run from the repository root with no arguments:
 
 Phases (any failure raises and the script exits non-zero):
   1. the card (name and power limit from nvidia-smi, compute capability
-     9.0), torch and CUDA versions; build the kernels (one nvcc per source,
+     9.0, SMs and top SM clock), torch and CUDA versions; build the kernels (one nvcc per source,
      all at once) and print the build time;
   2. each kernel against its plain PyTorch version on the same CUDA tensors
      at main-path shapes, every output bit-identical:
@@ -43,6 +43,12 @@ Phases (any failure raises and the script exits non-zero):
        past bit 2^31; beside each, the probe's block walk counts the
        re-walks by branch (joined from the old record, the old starts, a
        walk of the suffix), and every branch must have run;
+     - stream_decode's device-scalar form (decode_stream_dev: start bit,
+       stream length and budget read from device memory, the fused
+       streaming drain's tail walk) at the fused drain's output size on
+       the 8 MiB stream's tail, uncapped and with budgets 100, 0, n - 1
+       and n, and from a negative start, against its plain version and the
+       by-value form;
   3. the golden vectors through the public encode/encode_with_index and
      decode; an unknown symbol raising with the right index on encode and
      zeros raising on decode (from the fixpoint fallback); max_output giving
@@ -69,7 +75,8 @@ Phases (any failure raises and the script exits non-zero):
      by torch.profiler, stream_decode alone at each of decode_ablate's
      walks (7 and 64 bytes, the tail, 2, 16 and 64 KiB, a capped walk of
      2^20 symbols) beside the probe's one-thread `serial` design, an empty
-     block and its bound; a one-shot decode of 2 KiB to 1 MiB through the
+     block and its bound; the device-scalar form alone on the tail beside
+     the by-value form in one call; a one-shot decode of 2 KiB to 1 MiB through the
      walk and through the self-sync path (wall and device busy); the
      device time of one decode by kernel, the host syncs of one decode
      (torch.cuda.set_sync_debug_mode), and the public calls end to end from
@@ -78,18 +85,27 @@ Phases (any failure raises and the script exits non-zero):
      random bytes (seed 11) on the static table through a capped
      HuffmanEncoder.encode_chunk loop at 1 MiB (its bytes equal tt.encode's),
      a HuffmanDecoder fed 1 MiB input chunks, and a capped drain of 1 MiB
-     symbols a call after one feed (both give the input back), with the
-     launch counters reset before each loop and every kernel of the path
-     launched (count, pack, selfsync_decode with starts, stream_decode); the
+     symbols a call after one feed (both give the input back), all through
+     the fused calls (one sequence of launches and one download a call):
+     first call by call against the classic forms (the encoder's two-step
+     _encode_chunk_classic; the classic words drains called directly) and
+     the C++ oracle (bytes, consumed, done, state(), carries), each fused
+     call under set_sync_debug_mode, failing above 1 host sync plus its
+     counted second downloads, with the fallbacks to the classic drain
+     printed; then, with the launch counters reset before each loop and
+     every kernel of the path launched (count, pack, selfsync_decode with
+     starts, stream_decode_dev), the
      calls, the selfsync_decode launches per drain and the stitch outcomes
      of each loop, the median ms per call of the first and
-     last eight calls of each loop, and 64 MiB / (t_enc + t_dec) in GB/s;
+     last eight calls of each loop, and 64 MiB / (t_enc + t_dec) in GB/s,
+     twice, the classic loops timed in turns with them; the wall and
+     device busy (torch.profiler) of one call of each, fused and classic;
      then selfsync_decode with starts against its plain version and timed
      at one drain call's shape; then 4 MiB at 16 KiB chunks (HTTP/2's
      default frame size), every fed call one stream_decode launch: the
      median wall and device busy of a call and 4 MiB / (t_enc + t_dec);
   7. the protocol on the card: a 256 KiB stream at 4 KiB chunks, the
-     decoder's threshold lowered so that the self-sync words drains run;
+     decoder's threshold lowered so that the fused bulk drains run;
      every call's result, overflow_bits, leftover_bits and state equal
      those on device="cpu"; the stitch outcomes on the card printed;
   8. C2: one uncapped encode_chunk of a stream just past 2^31 bits: no
@@ -117,7 +133,10 @@ Phases (any failure raises and the script exits non-zero):
      seed and at every shape, round count and block size it is timed at;
      then timed where they fill the card, the dependent-step
      latencies at 1, 8 and 64 warps an SM, and the library yardsticks
-     (chained torch.take; the one-hot torch.matmul);
+     (chained torch.take on P2's and on P3's table; the one-hot
+     torch.matmul); the bounds of lut_chain, lut_wide and step_chain also
+     count their shared-memory lookups (32 lanes x 4 B a cycle an SM at
+     the card's top SM clock, from nvidia-smi);
  11. the mesh (tpu_huffman_torch.shard, .distributed): MeshCodec on
      default_mesh() (every card), on 4 shards of the first card and on a
      2 x 2 ("dcn", "ici") mesh of it, 64 MiB of random bytes (seed 2024)
@@ -163,7 +182,8 @@ The last line is one JSON object {"ok": true, "device": {...}}; the line
 before it is the {"kernels": [...]} summary (count, pack and chain_decode
 list every path that launched them, with its launches, under "paths"; the
 pack's device-total form and the step's timings are under the pack's
-"device_total" and "best_encode_step"),
+"device_total" and "best_encode_step"; stream_decode_dev's launches are
+the fused streaming loops' of phase 6),
 with each kernel's bound: the
 larger of the bytes it must move (each input read once, each output written
 once) over 3.35 TB/s and its integer operations over 67 T/s (the card's
@@ -199,6 +219,10 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (NVIDIA's data sheet)
 # tensor cores is the nearest published peak.
 SCALAR_OPS_PER_S = 67e12
 BF16_FLOPS_PER_S = 989e12  # dense tensor-core bf16 (NVIDIA's data sheet)
+# Shared-memory lookups a second: 32 lanes x 4 bytes a cycle an SM, over
+# the card's SMs at its top SM clock (main() sets it from the card; this
+# is the H100 SXM's 132 SMs at 1980 MHz).
+SMEM_LOOKUPS_PER_S = 132 * 32 * 1980e6
 # Integer operations per symbol in each kernel's loop body (a table gather,
 # shifts, compares, adds, the store), counted from the sources in csrc/.
 OPS_PER_SYMBOL = {"encode_count": 5, "encode_pack": 12, "chain_decode": 10,
@@ -321,25 +345,32 @@ def _host_ms_by_function(fn, calls: int = 8, top: int = 6) -> list:
             for t, k in rows]
 
 
-def sync_sites(torch, fn) -> list:
-    """The file:line of each host sync fn() makes (each synchronising CUDA
-    call warns under torch.cuda.set_sync_debug_mode("warn"))."""
+def with_syncs(torch, fn) -> tuple:
+    """(fn()'s result, the file:line of each host sync it made): each
+    synchronising CUDA call warns under torch.cuda.set_sync_debug_mode("warn")."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            fn()
+            got = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return ["/".join(w.filename.split("/")[-2:]) + f":{w.lineno}" for w in caught
-            if "synchroniz" in str(w.message)]
+    return got, ["/".join(w.filename.split("/")[-2:]) + f":{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
 
 
-def _bound(nbytes: int, ops: int) -> tuple[float, str]:
-    """The least time the card could take (ms), and what bounds it."""
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = ops / SCALAR_OPS_PER_S * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+def sync_sites(torch, fn) -> list:
+    """The file:line of each host sync fn() makes."""
+    return with_syncs(torch, fn)[1]
+
+
+def _bound(nbytes: int, ops: int, lookups: int = 0) -> tuple[float, str]:
+    """The least time the card could take (ms), and what bounds it: the
+    bytes, the integer operations, or the shared-memory lookups (the
+    probes whose work is those lookups)."""
+    return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+               (ops / SCALAR_OPS_PER_S * 1e3, "operations"),
+               (lookups / SMEM_LOOKUPS_PER_S * 1e3, "shared-memory lookups"))
 
 
 def _reset(*counters) -> None:
@@ -486,28 +517,155 @@ def stitch_form_work(form: str, args, kw, outs, seg_bits: int, seg_words: int) -
             OPS_PER_SYMBOL["selfsync_decode_starts"] * n_sym)
 
 
+def classic_decoder(tt, table, dev):
+    """A HuffmanDecoder whose bulk drains call the classic words drains
+    (selfsync_decode_words, selfsync_decode_capped_words) directly, in
+    place of the fused one: the form the fused drain replaced."""
+    from tpu_huffman_torch import stream
+    from tpu_huffman_torch.ops import selfsync
+
+    dec = tt.HuffmanDecoder(table, device=dev)
+    fused = dec._drain
+
+    def drain(capacity):
+        rem = dec._rem
+        if (8 * rem.nbytes > rem.consumed_bit
+                and rem.nbytes - (rem.consumed_bit >> 3) > stream.BULK_DECODE_THRESHOLD):
+            args = (rem.buf, rem.nbytes, rem.consumed_bit, table)
+            if capacity is None:
+                return (*selfsync.selfsync_decode_words(*args), False)
+            return selfsync.selfsync_decode_capped_words(*args, capacity)
+        return fused(capacity)
+
+    dec._drain = drain
+    return dec
+
+
+def fused_checks(torch, tt, table, dev, data: bytes, encoded: bytes, cap: int) -> dict:
+    """The three loops of phase 6 call by call: the fused calls against the
+    classic forms (the encoder's _encode_chunk_classic, classic_decoder) and
+    the C++ oracle (bytes, consumed, done, state() and carries), each fused
+    call under set_sync_debug_mode: at most 1 host sync plus its counted
+    second downloads. Returns {loop: {calls, syncs by count, second
+    downloads, fallbacks}}."""
+    from tpu_huffman_torch import oracle as orc_mod
+    from tpu_huffman_torch import stream
+    from tpu_huffman_torch.ops import selfsync
+
+    otable = orc_mod.OracleTable(table)
+    # what warns with no call between the mode's switches is not the call's
+    idle = set(sync_sites(torch, lambda: None))
+    report = {}
+
+    def counted(loop, fn):
+        """fn() under the sync check; its syncs, second downloads and fallbacks."""
+        seconds = stream.encode_outcomes["second_downloads"] + selfsync.outcomes[
+            "second_downloads"]
+        fell = selfsync.outcomes["fallback"]
+        got, sites = with_syncs(torch, fn)
+        sites = [site for site in sites if site not in idle]
+        second = (stream.encode_outcomes["second_downloads"]
+                  + selfsync.outcomes["second_downloads"] - seconds)
+        fallback = selfsync.outcomes["fallback"] - fell
+        rep = report.setdefault(loop, {"calls": 0, "syncs": collections.Counter(),
+                                       "second_downloads": 0, "fallbacks": 0,
+                                       "first_call_sites": sites})
+        rep["calls"] += 1
+        rep["syncs"][len(sites)] += 1
+        rep["second_downloads"] += second
+        rep["fallbacks"] += fallback
+        if len(sites) > 1 + second:
+            raise AssertionError(f"phase 6 fused {loop} call {rep['calls']}: "
+                                 f"{len(sites)} host syncs ({', '.join(sites)}), "
+                                 f"{second} second downloads, {fallback} fallbacks")
+        return got
+
+    # the capped encode_chunk loop
+    fused, classic = tt.HuffmanEncoder(table, device=dev), tt.HuffmanEncoder(table, device=dev)
+    orc = orc_mod.OracleEncoder(otable)
+    view = memoryview(data)
+    while True:
+        r = counted("encode_chunk", lambda: fused.encode_chunk(view, cap))
+        c = classic._encode_chunk_classic(view, cap)
+        o = orc.encode_chunk(view, cap)
+        if not ((r.data, r.consumed, r.done) == (c.data, c.consumed, c.done) == o
+                and fused.state() == classic.state()
+                and fused.overflow_bits == orc.overflow_bits):
+            raise AssertionError("phase 6: a fused encode_chunk differs from the classic "
+                                 "form's or the oracle's")
+        view = view[r.consumed:]
+        if r.done:
+            break
+    # the decoder fed `cap`-byte input chunks, uncapped
+    fused, classic = tt.HuffmanDecoder(table, device=dev), classic_decoder(tt, table, dev)
+    orc = orc_mod.OracleDecoder(otable)
+    for i in range(0, len(encoded), cap):
+        chunk = encoded[i:i + cap]
+        r = counted("fed decode_chunk", lambda: fused.decode_chunk(chunk))
+        c = classic.decode_chunk(chunk)
+        o_out, o_used, _ = orc.decode_chunk(chunk, len(data))
+        if not ((r.data, r.done) == (c.data, c.done) and r.data == o_out
+                and o_used == len(chunk) and fused.state() == classic.state()):
+            raise AssertionError(f"phase 6: fused decode_chunk of input chunk {i // cap} "
+                                 f"differs from the classic drain's or the oracle's")
+    # one feed, then drains of `cap` symbols a call
+    fused, classic = tt.HuffmanDecoder(table, device=dev), classic_decoder(tt, table, dev)
+    orc = orc_mod.OracleDecoder(otable)
+    pending_o, feed, calls = memoryview(encoded), encoded, 0
+    while True:
+        r = counted("capped drain", lambda: fused.decode_chunk(feed, capacity=cap))
+        c = classic.decode_chunk(feed, capacity=cap)
+        feed = b""
+        o_out, o_used, o_done = orc.decode_chunk(pending_o, cap)
+        pending_o = pending_o[o_used:]
+        calls += 1
+        same_state = (fused.state() == classic.state()) if r.done or calls % 8 == 0 else True
+        if not ((r.data, r.done) == (c.data, c.done) and r.data == o_out
+                and r.done == (o_done and not len(pending_o)) and same_state):
+            raise AssertionError(f"phase 6: fused capped drain call {calls} differs from the "
+                                 f"classic drain's or the oracle's")
+        if r.done:
+            break
+    for loop, rep in report.items():
+        rep["syncs"] = dict(sorted(rep["syncs"].items()))
+        print(f"phase 6 fused {loop}: {rep['calls']} calls equal to the classic form's and the "
+              f"oracle's (bytes, done, state); host syncs per call (calls by count): "
+              f"{rep['syncs']}, the first call's at {rep['first_call_sites']} (not counted: "
+              f"{sorted(idle)}, which warn with no call between the mode's switches); second "
+              f"downloads {rep['second_downloads']}, fallbacks to the classic drain "
+              f"{rep['fallbacks']}")
+    return report
+
+
 def phase_streaming(torch, tt, table, counters, dev, stream_mb: int = 64,
                     cap: int = MIB) -> dict:
     """bench_suite.bench_streaming on the port: a capped encode_chunk loop,
     a decoder fed 1 MiB input chunks, and a capped drain of 1 MiB symbols a
-    call after one feed, each with the launch counters reset before it."""
+    call after one feed, each with the launch counters reset before it;
+    the fused calls against the classic forms and the oracle call by call
+    (fused_checks), and both forms timed in turns."""
     from tpu_huffman_torch.ops import selfsync
 
     n = stream_mb * MIB
     data = np.random.default_rng(11).integers(0, 256, size=n, dtype=np.uint8).tobytes()
     want = tt.encode(data, table, device=dev)
 
-    def encode_loop(src):
+    def encode_loop(src, classic=False):
         enc = tt.HuffmanEncoder(table, device=dev)
+        step = enc._encode_chunk_classic if classic else enc.encode_chunk
         view = memoryview(src)
 
         def call(pending):
-            return enc.encode_chunk(pending, cap), pending
+            return step(pending, cap), pending
 
         return _timed_calls(call, view, lambda rp: rp[1][rp[0].consumed:], lambda rp: rp[0].done)
 
-    def feed_loop(encoded):
-        dec = tt.HuffmanDecoder(table, device=dev)
+    def decoder(classic):
+        return classic_decoder(tt, table, dev) if classic else tt.HuffmanDecoder(table,
+                                                                                 device=dev)
+
+    def feed_loop(encoded, classic=False):
+        dec = decoder(classic)
         offs = list(range(0, len(encoded), cap))
         results, times = [], []
         for i in offs:
@@ -516,8 +674,8 @@ def phase_streaming(torch, tt, table, counters, dev, stream_mb: int = 64,
             times.append(time.perf_counter() - t0)
         return results, times
 
-    def drain_loop(encoded):
-        dec = tt.HuffmanDecoder(table, device=dev)
+    def drain_loop(encoded, classic=False):
+        dec = decoder(classic)
         per_call = []
 
         def call(feed):
@@ -532,14 +690,35 @@ def phase_streaming(torch, tt, table, counters, dev, stream_mb: int = 64,
     # warm-up: each loop once on a 4-chunk stream (allocator, kernel load)
     warm = data[: 4 * cap]
     warm_enc = b"".join(r.data for r, _ in encode_loop(warm)[0])
-    feed_loop(warm_enc)
-    drain_loop(warm_enc)
+    for classic in (False, True):
+        encode_loop(warm, classic)
+        feed_loop(warm_enc, classic)
+        drain_loop(warm_enc, classic)
+    checks = fused_checks(torch, tt, table, dev, data, want, cap)
+
+    def classic_loops() -> dict:
+        """The three loops through the classic forms, their output checked:
+        the median ms of a call."""
+        enc_results, enc_times = encode_loop(data, classic=True)
+        feed_results, feed_times = feed_loop(want, classic=True)
+        drain_results, drain_times, _ = drain_loop(want, classic=True)
+        if not (b"".join(r.data for r, _ in enc_results) == want
+                and b"".join(r.data for r in feed_results) == data
+                == b"".join(r.data for r in drain_results)):
+            raise AssertionError("phase 6: a classic loop's output differs")
+        return {"encode_chunk": statistics.median(enc_times) * 1e3,
+                "fed decode_chunk": statistics.median(feed_times) * 1e3,
+                "capped drain": statistics.median(drain_times) * 1e3}
 
     def launched() -> dict:
         return {k: v for c in counters for k, v in c.items()}
 
-    # the three loops twice: host-clock times vary from run to run
+    # the three loops twice, fused and classic in turns (fused first in run
+    # 1, classic first in run 2): host-clock times vary from run to run
+    classic_ms = {}
     for rep in (1, 2):
+        if rep == 2:
+            classic_ms[rep] = classic_loops()
         out, ends = {}, {}
         _reset(*counters)
         t0 = time.perf_counter()
@@ -565,15 +744,17 @@ def phase_streaming(torch, tt, table, counters, dev, stream_mb: int = 64,
         out["drain"], ends["drain"] = launched(), dict(selfsync.outcomes)
         if b"".join(r.data for r in drain_results) != data:
             raise AssertionError("capped drain differs from the input")
+        if rep == 1:
+            classic_ms[rep] = classic_loops()
 
         for loop, needed in (("encode", ("encode_count", "encode_pack")),
-                             ("feed", ("selfsync_decode", "stream_decode")),
-                             ("drain", ("selfsync_decode_starts",))):
+                             ("feed", ("selfsync_decode", "stream_decode_dev")),
+                             ("drain", ("selfsync_decode_starts", "stream_decode_dev"))):
             if not all(out[loop][k] for k in needed):
                 raise AssertionError(f"streaming {loop} loop did not launch {needed}: {out[loop]}")
         total = {k: sum(out[loop][k] for loop in out) for k in out["encode"]}
-        # a repair launch runs only where a segment fails to merge
-        if not all(v for k, v in total.items() if k != "selfsync_decode_repair"):
+        # the by-value walk runs only on remainders of <= 64 KiB
+        if not all(v for k, v in total.items() if k != "stream_decode"):
             raise AssertionError(f"a kernel of the streaming path never ran: {total}")
         for loop, times in ((f"encode_chunk, capacity {cap} bytes", enc_times),
                             (f"decode_chunk, {cap}-byte input chunks", feed_times),
@@ -594,30 +775,47 @@ def phase_streaming(torch, tt, table, counters, dev, stream_mb: int = 64,
               f"{dict(sorted(collections.Counter(per_call).items()))}; launches: encode loop "
               f"{out['encode']}, feed loop {out['feed']}, drain loop {out['drain']}; "
               f"stitch outcomes: feed loop {ends['feed']}, drain loop {ends['drain']}")
+        medians = {"encode_chunk": statistics.median(enc_times) * 1e3,
+                   "fed decode_chunk": statistics.median(feed_times) * 1e3,
+                   "capped drain": statistics.median(drain_times) * 1e3}
+        print(f"phase 6 streaming run {rep} median ms per call, fused | classic (classic "
+              f"{'after' if rep == 1 else 'before'} fused): "
+              + ", ".join(f"{k} {v:.3f} | {classic_ms[rep][k]:.3f}" for k, v in medians.items()))
         if rep == 1:
             first_launches = total
+    wall = {"fused": medians, "classic": classic_ms[2]}
 
     # where one call's time goes: device time by kernel and copy (profiler),
-    # and host time by function (cProfile), beside the loop's median
-    drainer = tt.HuffmanDecoder(table, device=dev)
-    drainer.decode_chunk(encoded, capacity=cap)
-    for label, fn, wall in (
-        ("encode_chunk", lambda: tt.HuffmanEncoder(table, device=dev).encode_chunk(
-            memoryview(data), cap), statistics.median(enc_times)),
-        ("fed decode_chunk", lambda: tt.HuffmanDecoder(table, device=dev).decode_chunk(
-            encoded[:cap]), statistics.median(feed_times)),
-        ("capped drain call", lambda: drainer.decode_chunk(b"", capacity=cap),
-         statistics.median(drain_times)),
-    ):
-        by_kernel = _device_ms_by_kernel(torch, fn)
-        print(f"phase 6 streaming {label}, device ms per call by torch.profiler: "
-              f"{sum(by_kernel.values()):.4f} busy of {wall * 1e3:.3f} wall (run 2 median), "
-              f"{len(by_kernel)} kernels and copies")
-        for key, t in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
-            print(f"  {t:.4f} ms  {key[:100]}")
-        print(f"phase 6 streaming {label}, host ms per call by cProfile (own time): "
-              + ", ".join(f"{name} {ms:.3f}" for name, ms in _host_ms_by_function(fn)))
-    return {"launches": first_launches, "encoded": encoded, "data": data}
+    # and host time by function (cProfile), beside the loop's median; the
+    # fused call and the classic one in turns
+    busy = {}
+    drainers = {form: decoder(form == "classic") for form in ("fused", "classic")}
+    for dec in drainers.values():
+        dec.decode_chunk(encoded, capacity=cap)
+    for label in ("encode_chunk", "fed decode_chunk", "capped drain"):
+        for form in ("fused", "classic"):
+            classic = form == "classic"
+            if label == "encode_chunk":
+                enc = tt.HuffmanEncoder(table, device=dev)
+                step = enc._encode_chunk_classic if classic else enc.encode_chunk
+                fn = lambda step=step: step(memoryview(data), cap)  # noqa: E731
+            elif label == "fed decode_chunk":
+                fn = lambda classic=classic: decoder(classic).decode_chunk(  # noqa: E731
+                    encoded[:cap])
+            else:
+                fn = lambda dec=drainers[form]: dec.decode_chunk(b"", capacity=cap)  # noqa: E731
+            by_kernel = _device_ms_by_kernel(torch, fn)
+            busy.setdefault(label, {})[form] = sum(by_kernel.values())
+            print(f"phase 6 streaming {label} ({form}), device ms per call by torch.profiler: "
+                  f"{busy[label][form]:.4f} busy of {wall[form][label]:.3f} wall (run 2 median), "
+                  f"{len(by_kernel)} kernels and copies")
+            for key, t in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:6]:
+                print(f"  {t:.4f} ms  {key[:100]}")
+            print(f"phase 6 streaming {label} ({form}), host ms per call by cProfile (own "
+                  f"time): " + ", ".join(f"{name} {ms:.3f}"
+                                         for name, ms in _host_ms_by_function(fn)))
+    return {"launches": first_launches, "encoded": encoded, "data": data, "checks": checks,
+            "wall_ms": wall, "busy_ms": busy}
 
 
 def _protocol(tt, table, data: bytes, device, chunk: int) -> dict:
@@ -650,7 +848,7 @@ def _protocol(tt, table, data: bytes, device, chunk: int) -> dict:
 def phase_protocol(torch, tt, table, counters, dev) -> None:
     """The card against the plain versions on the CPU, call by call, on a
     256 KiB stream at 4 KiB chunks with the decoder's threshold lowered so
-    that the self-sync words drains run."""
+    that the fused bulk drains run."""
     from tpu_huffman_torch import stream as tstream
 
     data = np.random.default_rng(12).integers(0, 256, size=256 * 1024, dtype=np.uint8).tobytes()
@@ -673,7 +871,9 @@ def phase_protocol(torch, tt, table, counters, dev) -> None:
     if b"".join(c[0] for c in card["feed"]) != data or b"".join(
             c[0] for c in card["drain"]) != data:
         raise AssertionError("protocol check: decoded bytes differ from the input")
-    if not all(v for k, v in launched.items() if k != "selfsync_decode_repair"):
+    # every bulk drain here is fused: the by-value walk takes only remainders
+    # of <= 1024 bytes, which these chunks do not leave
+    if not all(v for k, v in launched.items() if k != "stream_decode"):
         raise AssertionError(f"protocol check: a kernel did not run on the card: {launched}")
     print(f"phase 7 protocol, 256 KiB at 4 KiB chunks, words drains: {len(card['encode'])} "
           f"encode, {len(card['feed'])} feed and {len(card['drain'])} drain calls equal the "
@@ -969,6 +1169,80 @@ def phase_stream_checks(torch, tt, dev, data8: bytes, enc_static: bytes) -> int:
     return max(err, e)
 
 
+def phase_stream_dev(torch, tt, dev, data8: bytes, enc_static: bytes) -> dict:
+    """The device-scalar stream_decode (decode_stream_dev, the fused
+    drain's tail walk) at the fused drain's output size on the 8 MiB
+    stream's 191-symbol tail: uncapped, with budgets 100 (a capped tail),
+    0, n - 1 and n, and from a negative start (read as 0, over 4 KiB);
+    each against its plain version (decode_stream_dev_plain) and the
+    by-value form on the same scalars. Then the tail timed alone beside the
+    by-value form in one call (prof.kernel_ms), the wrapper and the plain
+    version by events. Returns the kernels line's row."""
+    import functools
+
+    from tpu_huffman_torch.ops import selfsync, stream_decode
+    from tpu_huffman_torch.ops.bitpack import stage_words
+    from tpu_huffman_torch.ops.encode import DeviceTable
+    from tpu_huffman_torch.prof import kernel_ms, max_abs_err, median_ms
+
+    table = tt.load_static_test_table()
+    dt = DeviceTable.for_table(table, dev)
+    words = stage_words(torch.frombuffer(bytearray(enc_static), dtype=torch.uint8).to(dev))
+    bits = 8 * len(enc_static)
+    data_np = np.frombuffer(data8, np.uint8)
+    tail_bit = int(table.lengths[data_np[:-191]].astype(np.int64).sum())
+    slots = 2 * selfsync.SEG_BITS // int(table.min_len) + 1  # the fused drain's
+    cases = {"tail uncapped": (tail_bit, bits, slots), "tail budget 100": (tail_bit, bits, 100),
+             "tail budget 0": (tail_bit, bits, 0), "tail budget 190": (tail_bit, bits, 190),
+             "tail budget 191": (tail_bit, bits, 191),
+             "start -7 (read as 0), 4 KiB": (-7, 8 * 4096, slots)}
+    err = 0
+    for label, (start, limit, budget) in cases.items():
+        args = torch.tensor([start, limit, budget], dtype=torch.int64, device=dev)
+        got = stream_decode.decode_stream_dev(words, args, slots, dt)
+        plain = stream_decode.decode_stream_dev_plain(words, args, slots, dt)
+        by_value = stream_decode.decode_stream(words, max(start, 0), limit,
+                                               min(max(budget, 0), slots), dt)
+        torch.cuda.synchronize()
+        n = int(got[1][0])
+        e = max(max_abs_err(got[1], want[1]) for want in (plain, by_value))
+        e = max(e, *(max_abs_err(got[0][:n], want[0][:n]) for want in (plain, by_value)))
+        err = max(err, e)
+        print(f"phase 2 stream_decode_dev {label} ({slots} slots): max_abs_err {e} against its "
+              f"plain version and the by-value form; (n, end bit, status) "
+              f"{tuple(got[1].tolist())}")
+    if err:
+        raise AssertionError(f"stream_decode_dev differs: max_abs_err {err}")
+    tail_args = torch.tensor([tail_bit, bits, slots], dtype=torch.int64, device=dev)
+    dev_fn = functools.partial(stream_decode.decode_stream_dev, words, tail_args, slots, dt)
+    value_fn = functools.partial(stream_decode.decode_stream, words, tail_bit, bits, None, dt)
+    plain_fn = functools.partial(stream_decode.decode_stream_dev_plain, words, tail_args,
+                                 slots, dt)
+    alone = kernel_ms({"device scalars": dev_fn, "by value": value_fn,
+                       "device scalars again": dev_fn})
+    ms = median_ms(dev_fn)
+    plain_ms = _once_ms(torch, plain_fn)[0]
+    n, end, _status = dev_fn()[1].tolist()
+    bound_ms, bound_by = _bound(4 * (end // 32 - tail_bit // 32 + 2) + n + 48
+                                + 4 * dt.l0.numel(), OPS_PER_SYMBOL["stream_decode"] * n)
+    threads = stream_decode.geometry(*stream_decode.card_shape(slots * int(table.max_len), dt))
+    print(f"phase 5 stream_decode_dev, the 191-symbol tail ({threads} threads): alone "
+          f"{alone['device scalars']:.4f} / {alone['device scalars again']:.4f} ms beside the "
+          f"by-value form's {alone['by value']:.4f} ms (prof.kernel_ms, one call); wrapper "
+          f"{ms:.4f} ms by events, plain {plain_ms:.2f} ms (one call), bound {bound_ms:.7f} ms "
+          f"by {bound_by}")
+    return {"name": "stream_decode_dev", "route": "cuda",
+            "source": "tpu_huffman_torch/csrc/stream_decode.cu",
+            "replaces": "tpu_huffman/ops/decode.py:107",
+            "replaces_note": "decode_stream_kernel with its scalars traced; the JAX fused "
+                             "drain walks this tail on the host (ops/selfsync.py:1610)",
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None,
+            "kernel_only_ms": min(alone["device scalars"], alone["device scalars again"]),
+            "by_value_kernel_only_ms": alone["by value"],
+            "timed": f"the 8 MiB stream's 191-symbol tail, {slots} slots"}
+
+
 def _once_ms(torch, fn) -> tuple:
     """(ms, result) of one fn() call timed by CUDA events: for plain
     versions too slow for median_ms's 56 calls."""
@@ -1197,6 +1471,20 @@ def phase_probes(torch, dev) -> list:
     if not torch.equal(take_chain().to(torch.int32), lut.lut_chain(xf, t2, lut.R_CHAIN)):
         raise AssertionError("chained torch.take differs from lut_chain")
     take_ms = prof.median_ms(take_chain)
+    # P3's 32-bit table: the chain masks each value to 8 bits, so its
+    # chained torch.take reads a masked copy of the 256 entries
+    x3, t3, _acc3 = res["lut"]["fill"]["P3"]
+    x3_64, t3_masked = x3.to(torch.int64), t3.to(torch.int64) & 255
+
+    def take_chain3():
+        y = x3_64
+        for _ in range(lut.R_CHAIN):
+            y = torch.take(t3_masked, y)
+        return y
+
+    if not torch.equal(take_chain3().to(torch.int32), lut.lut_chain(x3, t3, lut.R_CHAIN)):
+        raise AssertionError("chained torch.take differs from lut_chain on P3's table")
+    take3_ms = prof.median_ms(take_chain3)
     xw, p32, lens = res["lut"]["fill"]["P6"]
     xw64 = xw.to(torch.int64)
     packed = (u32(p32) << 8) | (lens.to(torch.int64) & 255)
@@ -1219,7 +1507,8 @@ def phase_probes(torch, dev) -> list:
 
     onehot_ms = prof.median_ms(onehot_matmul)
     print(f"phase 10 library: {lut.R_CHAIN} chained torch.take {take_ms:.4f} ms "
-          f"({prof.FILL_ELEMENTS} elements); {lut.R_WIDE} torch.take of the packed wide entry "
+          f"({prof.FILL_ELEMENTS} elements; P2's table), {take3_ms:.4f} ms (P3's 32-bit "
+          f"table, masked); {lut.R_WIDE} torch.take of the packed wide entry "
           f"{take_wide_ms:.4f} ms; {lut.R_WIDE} one-hot torch.matmul (bf16) {onehot_ms:.4f} ms "
           f"({mma['n']} elements)")
 
@@ -1236,8 +1525,9 @@ def phase_probes(torch, dev) -> list:
          "launches": launched["lut_chain"], "ms": chain_row["ms"],
          "plain_ms": chain_row["plain_ms"], "library_ms": take_ms,
          "library": f"{lut.R_CHAIN} chained torch.take",
+         "p3_library_ms": take3_ms,
          "timed": f"P2's chain (byte table, smem) at {n} elements x {lut.R_CHAIN} rounds",
-         "work": (8 * n + 256, n * lut.R_CHAIN),
+         "work": (8 * n + 256, n * lut.R_CHAIN, n * lut.R_CHAIN),
          "forms_ms": {c: {f: r["ms"] for f, r in fm.items()}
                       for c, fm in res["lut"]["chain"].items()},
          "ns_per_dependent_lookup": res["lut"]["sweep"]},
@@ -1247,7 +1537,7 @@ def phase_probes(torch, dev) -> list:
          "plain_ms": wide["smem"]["plain_ms"], "library_ms": take_wide_ms,
          "library": f"{lut.R_WIDE} torch.take of the packed (pattern, length) entry",
          "timed": f"P6 (smem) at {n} elements x {lut.R_WIDE} rounds",
-         "work": (8 * n + 2048, n * lut.R_WIDE),
+         "work": (8 * n + 2048, n * lut.R_WIDE, n * lut.R_WIDE),
          "forms_ms": {f: r["ms"] for f, r in wide.items()}},
         {"name": "lut_wide_mma", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/probe_mma_lut.cu",
@@ -1265,7 +1555,7 @@ def phase_probes(torch, dev) -> list:
          "library_ms": None,
          "library": "none: no PyTorch call runs a chain of dependent steps",
          "timed": f"gather, smem, {latency.INNER} steps on {n_lat} elements (64 warps/SM)",
-         "work": (8 * n_lat + 4096, n_lat * latency.INNER),
+         "work": (8 * n_lat + 4096, n_lat * latency.INNER, n_lat * latency.INNER),
          "ns_per_dependent_step": {f"{k} {f}": r["sweep"]
                                    for (k, f), r in res["latency"]["configs"].items()}},
         {"name": "pack_ablate", "route": "cuda", "source": "tpu_huffman_torch/csrc/probe_pack.cu",
@@ -2030,6 +2320,14 @@ def main() -> int:
           f"device {torch.cuda.get_device_name(0)}")
     if cap != (9, 0):
         raise AssertionError(f"compute capability {cap}, expected (9, 0)")
+    global SMEM_LOOKUPS_PER_S
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    SMEM_LOOKUPS_PER_S = sms * 32 * sm_mhz * 1e6
+    print(f"{sms} SMs, top SM clock {sm_mhz:.0f} MHz: shared-memory lookups bound at "
+          f"{SMEM_LOOKUPS_PER_S:.4g} a second (32 lanes x 4 B a cycle an SM)")
     t0 = time.perf_counter()
     _build.load()
     print(f"kernels built in {_build.build_seconds:.2f} s "
@@ -2173,6 +2471,7 @@ def main() -> int:
         foreign[name] = (dt, words, n_segs, seg_bits, max_syms, entries, len(enc))
 
     errs["stream_decode"] = phase_stream_checks(torch, tt, dev, data8, enc_static)
+    dev_row = phase_stream_dev(torch, tt, dev, data8, enc_static)
     errs["selfsync_decode"] = max(errs["selfsync_decode"], *stitch_errs.values())
     if any(errs.values()):
         raise AssertionError(f"kernels differ from their plain versions: {errs}, stitch forms "
@@ -2279,7 +2578,7 @@ def main() -> int:
                                  f"outcomes {ends}")
         foreign_runs.append((name, out, secs, ran, ends))
     foreign_launches = {"selfsync_decode": selfsync.launches["selfsync_decode"],
-                        **stream_decode.launches}
+                        "stream_decode": stream_decode.launches["stream_decode"]}
     print(f"phase 4 foreign-stream path launches: {dict(selfsync.launches)}, "
           f"{dict(stream_decode.launches)}; stitch outcomes {dict(selfsync.outcomes)}")
     if not all(foreign_launches.values()):
@@ -2575,6 +2874,9 @@ def main() -> int:
             if k["name"] in step["launches"]:
                 k["paths"]["best_encode_step, 3 tables x 2 sizes (phase 12)"] = (
                     step["launches"][k["name"]])
+            if streaming["launches"].get(k["name"]):
+                k["paths"]["fused streaming calls, 64 MiB (phase 6)"] = (
+                    streaming["launches"][k["name"]])
         bound_ms, bound_by = _bound(*work[k["name"]])
         # No single PyTorch call computes any of these functions.
         k.update(launches=launches[k["name"]], max_abs_err=errs[k["name"]],
@@ -2582,6 +2884,10 @@ def main() -> int:
                  bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
                  kernel_only_ms=kernel_only.get(k["name"]),
                  stream_launches=streaming["launches"].get(k["name"], 0))
+    # the device-scalar walk runs on the fused streaming drains only (phase 6)
+    dev_row.update(launches=streaming["launches"]["stream_decode_dev"],
+                   stream_launches=streaming["launches"]["stream_decode_dev"])
+    kernels.append(dev_row)
     kernels += probe_rows
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -167,3 +167,44 @@ def test_two_process_gloo(tmp_path, meshkind):
     for rank, (p, out) in enumerate(results):
         assert p.returncode == 0, f"rank {rank} failed:\n{out}"
         assert f"rank {rank} OK {meshkind}" in out
+
+
+# --- the default devices of a process (no group, no card: all faked) ----------
+
+
+@pytest.mark.parametrize("env, cards, backend, want", [
+    # torchrun, one process a card: this process's card, made current for NCCL
+    ({"LOCAL_WORLD_SIZE": "4", "LOCAL_RANK": "2"}, 4, "nccl", [2]),
+    # one process on the host: every visible card
+    ({}, 3, "nccl", [0, 1, 2]),
+    ({"LOCAL_WORLD_SIZE": "1", "LOCAL_RANK": "0"}, 2, "gloo", [0, 1]),
+])
+def test_default_devices_per_process(monkeypatch, env, cards, backend, want):
+    """``global_data_mesh()`` with no ``local_devices``: ``cuda:LOCAL_RANK``
+    under a process-per-card launch, else every card; under NCCL the first
+    is made the current device before the first collective."""
+    from tpu_huffman_torch import distributed as dist
+
+    for key in ("LOCAL_WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(key, raising=False)
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    events = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: cards)
+    monkeypatch.setattr(torch.cuda, "set_device",
+                        lambda d: events.append(("set_device", torch.device(d))))
+    monkeypatch.setattr(dist.tdist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist.tdist, "get_world_size", lambda: 2)
+    monkeypatch.setattr(dist.tdist, "get_backend", lambda: backend)
+
+    def gather(x, dev):
+        events.append(("all_gather", dev))
+        return x.repeat(2)
+
+    monkeypatch.setattr(dist, "_all_gather", gather)
+    mesh = dist.global_data_mesh()
+    local = [torch.device("cuda", i) for i in want]
+    assert list(mesh.devices) == local * 2 and mesh.n_processes == 2
+    first = [("set_device", local[0])] if backend == "nccl" else []
+    assert events == first + [("all_gather", local[0])]

@@ -95,20 +95,22 @@ def _spy(monkeypatch, module, name, counter):
 
 
 def test_decoder_words_drain_appends_and_compaction(tables, monkeypatch):
-    """Odd-sized feeds put every byte phase of the append on the words
-    drain, and the consumed words are slid off once they pass 1024 words:
-    every chunk, leftover_bits and state() equal the JAX decoder's."""
+    """Odd-sized feeds put every byte phase of the append on the bulk
+    drain, and the consumed words are slid off (at a call's start) once
+    they pass 1024 words: every chunk, leftover_bits and state() equal the
+    JAX decoder's."""
     ref, t = tables
     monkeypatch.setattr(tstream, "BULK_DECODE_THRESHOLD", 64)
     monkeypatch.setattr(selfsync, "SEG_WORDS", 4)
     calls = {}
-    _spy(monkeypatch, selfsync, "selfsync_decode_words", calls)
+    _spy(monkeypatch, selfsync, "fused_drain_words", calls)
     _spy(monkeypatch, tstream, "slide_words", calls)
     data = _random(6000, 21)
     enc = th.encode(data, ref)
     ours, theirs = tt.HuffmanDecoder(t, device=CPU), th.HuffmanDecoder(ref)
     got, pos, phases = b"", 0, set()
-    for step in (517, 102, 3, 250, 2500, 10_000):
+    # the last, empty, feed slides the consumed words off at its start
+    for step in (517, 102, 3, 250, 2500, 10_000, 1):
         phases.add(ours._rem.nbytes % 4)
         chunk = enc[pos:pos + step]
         pos += step
@@ -119,7 +121,7 @@ def test_decoder_words_drain_appends_and_compaction(tables, monkeypatch):
         got += r.data
     assert got == data and pos >= len(enc)
     assert phases == {0, 1, 2, 3}
-    assert calls["selfsync_decode_words"] >= 5 and calls["slide_words"] >= 1
+    assert calls["fused_drain_words"] >= 5 and calls["slide_words"] >= 1
     assert ours.padding_is_all_ones()
 
 

@@ -65,6 +65,12 @@ SIGNATURES = {
         _I32, _P, _I64, _I64, _I64, _I64, _P, _I32, _P, _I64, _I32, _I32, _I32, _I32, _I32,
         _P, _P, _P, _P,
     ),
+    # device, words, n_words, args (int64 start_bit, total_bits, budget on
+    # the device), out_slots, l0, root_bits, l1, l1_size, max_len, min_len,
+    # threads, sub_bits, overlap, out, info, stream
+    "thc_stream_decode_dev": (
+        _I32, _P, _I64, _P, _I64, _P, _I32, _P, _I64, _I32, _I32, _I32, _I32, _I32, _P, _P, _P,
+    ),
     # The profiling probes (prof/), csrc/probe_*.cu.
     # device, x, n, table, table_bytes, rounds, accumulate, form, block,
     # grid, out, stream

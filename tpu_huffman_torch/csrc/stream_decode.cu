@@ -55,6 +55,23 @@ __global__ void __launch_bounds__(1024, 1) stream_decode_kernel(
                                           nullptr);
 }
 
+// The same walk from scalars that earlier launches left in device memory:
+// args = (start_bit, total_bits, budget). A negative start or budget counts
+// as 0, and the budget is capped at the output's out_slots.
+template <bool TwoLevel>
+__global__ void __launch_bounds__(1024, 1) stream_decode_dev_kernel(
+    const unsigned* __restrict__ words, long long n_words, const long long* __restrict__ args,
+    long long out_slots, const int* __restrict__ l0_g, int root_bits,
+    const int* __restrict__ l1_g, long long l1_size, int sub_bits, int overlap, int min_len,
+    uint8_t* __restrict__ out, long long* __restrict__ info) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const long long start_bit = max(args[0], 0LL);
+  const long long budget = min(max(args[2], 0LL), out_slots);
+  thc::stream_walk<TwoLevel, true, true>(smem, words, n_words, start_bit, args[1], budget, l0_g,
+                                          root_bits, l1_g, l1_size, sub_bits, overlap, min_len,
+                                          out, info, nullptr, nullptr, nullptr);
+}
+
 }  // namespace
 
 extern "C" {
@@ -87,6 +104,37 @@ int thc_stream_decode(int device, const void* words, long long n_words,
       (const unsigned*)words, n_words, start_bit, total_bits, out_capacity, (const int*)l0,
       root_bits, (const int*)l1, l1_size, sub_bits, overlap, min_len, (uint8_t*)out,
       (long long*)info, (long long*)stats);
+  return (int)cudaGetLastError();
+}
+
+// thc_stream_decode with its three scalars in device memory: args holds
+// int64 (start_bit, total_bits, budget), written by earlier launches on the
+// same stream, so the host need not read them. The walk starts at
+// max(start_bit, 0) and writes at most min(budget, out_slots) symbols; the
+// result equals thc_stream_decode's with out_capacity = budget when
+// out_slots covers the most symbols the bits can hold, (total_bits -
+// start_bit) / min_len + 1. The shape (threads, sub_bits) comes from the
+// host's bound on the walk, not from the scalars.
+int thc_stream_decode_dev(int device, const void* words, long long n_words, const void* args,
+                          long long out_slots, const void* l0, int root_bits, const void* l1,
+                          long long l1_size, int max_len, int min_len, int threads,
+                          int sub_bits, int overlap, void* out, void* info, void* stream) {
+  const size_t smem = thc::stream_walk_smem(threads, sub_bits, overlap, min_len, root_bits,
+                                            l1_size, true);
+  if (smem == 0 || out_slots < 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  auto kernel = thc::two_level(root_bits, max_len) ? stream_decode_dev_kernel<true>
+                                                  : stream_decode_dev_kernel<false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t attr =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr != cudaSuccess) return (int)attr;
+  }
+  kernel<<<1, threads, smem, (cudaStream_t)stream>>>(
+      (const unsigned*)words, n_words, (const long long*)args, out_slots, (const int*)l0,
+      root_bits, (const int*)l1, l1_size, sub_bits, overlap, min_len, (uint8_t*)out,
+      (long long*)info);
   return (int)cudaGetLastError();
 }
 

@@ -20,6 +20,8 @@ CUDA tensors under NCCL, through the CPU under gloo.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 import torch.distributed as tdist
@@ -49,16 +51,28 @@ def initialize(init_method: str | None = None, world_size: int | None = None,
     tdist.init_process_group(**kwargs)
 
 
+def _default_devices() -> list[torch.device]:
+    """This process's CUDA devices: its own card under a process-per-card
+    launch (``torchrun``'s ``LOCAL_WORLD_SIZE`` > 1: ``cuda:LOCAL_RANK``),
+    else every visible card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is visible (torch.cuda.is_available() is False); "
+            "pass local_devices=[...] for CPU shards"
+        )
+    if int(os.environ.get("LOCAL_WORLD_SIZE") or 1) > 1:
+        return [torch.device("cuda", int(os.environ.get("LOCAL_RANK") or 0))]
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def _local_and_world(local_devices) -> tuple[list[torch.device], int]:
     if local_devices is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device is visible (torch.cuda.is_available() is False); "
-                "pass local_devices=[...] for CPU shards"
-            )
-        local_devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        local_devices = _default_devices()
     local = [torch.device(d) for d in local_devices]
     world = tdist.get_world_size() if tdist.is_initialized() else 1
+    if tdist.is_initialized() and tdist.get_backend() == "nccl" and local[0].type == "cuda":
+        # NCCL's collectives run on the current device: this process's first
+        torch.cuda.set_device(local[0])
     if world > 1:
         counts = _all_gather(torch.tensor([len(local)]), local[0]).reshape(-1)
         if (counts != len(local)).any():
@@ -68,7 +82,9 @@ def _local_and_world(local_devices) -> tuple[list[torch.device], int]:
 
 def global_data_mesh(axis: str = "data", local_devices=None) -> Mesh:
     """1-D mesh over every process's local devices, in process order.
-    ``local_devices`` defaults to every visible CUDA device."""
+    ``local_devices`` defaults to the process's own card under a
+    process-per-card launch (``LOCAL_WORLD_SIZE`` > 1), else to every
+    visible CUDA device."""
     local, world = _local_and_world(local_devices)
     return Mesh(np.asarray(local * world, dtype=object), (axis,), n_processes=world)
 

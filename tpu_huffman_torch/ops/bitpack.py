@@ -98,6 +98,19 @@ def slide_words(buf: torch.Tensor, cw: int) -> torch.Tensor:
     return torch.cat([buf[cw:], buf.new_zeros(cw)])
 
 
+def download(scalars: torch.Tensor, *parts: torch.Tensor):
+    """One device-to-host copy of a 1-D int64 tensor ``scalars`` and 1-D
+    uint8 ``parts``: (the scalars as a list of ints, each part as a numpy
+    uint8 array)."""
+    blob = torch.cat([scalars.view(torch.uint8), *parts]).cpu().numpy()
+    at = 8 * scalars.numel()
+    vals, arrays = blob[:at].view(np.int64).tolist(), []
+    for part in parts:
+        arrays.append(blob[at:at + part.numel()])
+        at += part.numel()
+    return vals, arrays
+
+
 def extract_windows(words64: torch.Tensor, bit_offsets: torch.Tensor) -> torch.Tensor:
     """32-bit MSB-aligned windows starting at ``bit_offsets`` (int64).
 

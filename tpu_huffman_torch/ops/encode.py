@@ -57,8 +57,14 @@ def stage_bytes(data, dev: torch.device) -> torch.Tensor:
         src = np.frombuffer(data, dtype=np.uint8)
     else:
         src = np.asarray(data, dtype=np.uint8).reshape(-1)
-    # a private, writable copy: torch.from_numpy shares the buffer
-    return torch.from_numpy(src.copy()).to(dev)
+    if dev.type != "cuda":
+        # a private, writable copy: torch.from_numpy shares the buffer
+        return torch.from_numpy(src.copy())
+    # through a pinned buffer, so that the upload does not block the host
+    # (a copy from pageable memory waits for the device)
+    staged = torch.empty(src.size, dtype=torch.uint8, pin_memory=True)
+    staged.numpy()[:] = src
+    return staged.to(dev, non_blocking=True)
 
 
 class DeviceTable:
@@ -77,6 +83,9 @@ class DeviceTable:
 
     def __init__(self, table: HuffmanTable, dev: torch.device):
         self.table = table
+        # bits a symbol of the last uncapped streaming encode, with a margin:
+        # sizes the next one's download (stream.HuffmanEncoder)
+        self.encode_rate = None
 
         def put(a, dtype):
             return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)

@@ -59,13 +59,22 @@ prefix of ``sb + (capacity + 1) * max_len + 64`` bits, so a call costs
 O(capacity), not O(remainder). The stitch cuts the body at the start bit
 of symbol number ``capacity``, from the kernel's ``starts``.
 
+Those two read the device two to five times a call. The decoder calls
+:func:`fused_drain_words` instead, which does the same work as one
+sequence of launches with one download at its end: the repair launched
+every time (its lanes dead on a clean stream), the body assembled at a
+size the host fixes (the capacity, or a rate hint from the last call),
+and the tail walked by ``stream_decode.decode_stream_dev`` from the start
+bit and budget that the stitch left in device memory. A segment still
+unresolved after the repair sends the call to the two classic drains,
+which own the body's errors (the JAX package's ``_FusedFallback`` rule).
+
 Not ported, because they only shape static XLA programs on the TPU: the
 lane bucketing of the grid and of the download (``S_dl``), the slot-grid
 rate hints (``_dl_bucket``, ``_learn_dl_rate``, ``n_dl``, ``dl_over``),
 ``_REPAIR_IN_INTERPRET``, the u16-pair packing of the offsets and the
 split between the host stitch and the dense one (the port stitches on the
-device for every table). The fused one-dispatch drain
-(``fused_drain_words``) is not ported either; see ROADMAP.md.
+device for every table).
 
 :func:`decode_segments` runs the plain version for tensors on the CPU and
 launches the kernel for tensors on a CUDA device; there is no fallback from
@@ -76,13 +85,15 @@ patch launches (a code cap) and the repair launches (segment ids).
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from .. import _build
 from ..errors import UnknownSymbolError
 from ..tables import MAX_CODE_BITS, HuffmanTable
 from . import stream_decode
-from .bitpack import extract_windows, stage_words, u32
+from .bitpack import download, extract_windows, stage_words, u32
 from .chain_decode import lut_lookup
 from .encode import DeviceTable, resolve_device, stage_bytes
 
@@ -101,8 +112,11 @@ PATCH_SYMS = 32
 R_MAX = 256
 launches = {"selfsync_decode": 0, "selfsync_decode_starts": 0, "selfsync_decode_blast": 0,
             "selfsync_decode_patch": 0, "selfsync_decode_repair": 0}
-# drains of kernel segments by how they ended, and the segments repaired
-outcomes = {"stitched": 0, "repaired": 0, "fixpoint": 0, "segments_repaired": 0}
+# drains of kernel segments by how they ended, and the segments repaired;
+# the fused drains that fell back to the classic ones, and the fused drains
+# whose body outgrew the first download
+outcomes = {"stitched": 0, "repaired": 0, "fixpoint": 0, "segments_repaired": 0,
+            "fallback": 0, "second_downloads": 0}
 
 
 def supports(table: HuffmanTable) -> bool:
@@ -316,22 +330,30 @@ def _assemble(head: torch.Tensor, tail: torch.Tensor, i_eff: torch.Tensor,
     return torch.cat([head, tail], 1).reshape(-1)[idx]
 
 
-def stitch(words: torch.Tensor, start_bit: int, plan: tuple, dt,
-           capacity: int | None = None):
-    """The one-pass + patch stitch over the plan's segments, on the words'
-    device (see the module's docstring).
+@dataclasses.dataclass
+class _Merge:
+    """Steps 1-4 of the stitch, on the device: the full pass's rows, the
+    true entries, the patch's rows, and per segment the merge's head length
+    (``i_eff``), tail start (``j_s``), symbol count and failure flag."""
 
-    Returns None when a segment stays unresolved, else (body, tail_start,
-    total, cut): the first min(total, capacity) symbols of the segments'
-    true chains (uint8, on the device), the bit where the sequential tail
-    starts, the segments' symbol count, and the start bit of symbol number
-    ``capacity`` when ``capacity`` < total (else None). Raises nothing for
-    the stream's content: a true chain with an invalid window never
-    resolves.
-    """
+    max_syms: int
+    syms0: torch.Tensor
+    starts0: torch.Tensor
+    exits0: torch.Tensor
+    entries1: torch.Tensor
+    syms_a: torch.Tensor
+    starts_a: torch.Tensor
+    i_eff: torch.Tensor
+    j_s: torch.Tensor
+    counts: torch.Tensor
+    fail: torch.Tensor
+
+
+def _merge(words: torch.Tensor, start_bit: int, plan: tuple, dt) -> _Merge:
+    """The full pass, the patch from the true entries and the merge (steps
+    1-4 of the module's docstring): two launches and torch ops, no host
+    read."""
     n_segs, seg_bits = plan
-    if seg_bits > MAX_STARTS_SEG_BITS:
-        return None  # no int16 starts to merge at
     dev = words.device
     a = PATCH_SYMS
     max_syms = max_symbols(dt.table, seg_bits)
@@ -367,20 +389,51 @@ def stitch(words: torch.Tensor, start_bit: int, plan: tuple, dt,
     resolved = (bad_a == 0) & (use_tail | (reached_end & (exits_a == exits0)))
     i_eff = torch.where(use_tail, i_s, count_a)
     counts = i_eff + torch.where(use_tail, count0 - j_s, 0)
-    fail = ~resolved
+    return _Merge(max_syms, syms0, starts0, exits0, entries1, syms_a, starts_a, i_eff, j_s,
+                  counts, ~resolved)
+
+
+def _repair_lanes(fail: torch.Tensor, lanes: int):
+    """The repair's segment ids: the failed segments in lanes 0.., in order
+    (a scatter by their rank among the failures), the other lanes dead
+    (-1); failures past ``lanes`` are left out. Returns (seg_ids int32
+    [lanes], rank int64 [n_segs])."""
+    n_segs = fail.numel()
+    rank = torch.cumsum(fail, 0) - 1
+    lane = torch.where(fail & (rank < lanes), rank, lanes)  # slot `lanes` takes the rest
+    seg_ids = torch.full((lanes + 1,), -1, dtype=torch.int32, device=fail.device)
+    seg_ids.scatter_(0, lane, torch.arange(n_segs, dtype=torch.int32, device=fail.device))
+    return seg_ids[:lanes], rank
+
+
+def stitch(words: torch.Tensor, start_bit: int, plan: tuple, dt,
+           capacity: int | None = None):
+    """The one-pass + patch stitch over the plan's segments, on the words'
+    device (see the module's docstring).
+
+    Returns None when a segment stays unresolved, else (body, tail_start,
+    total, cut): the first min(total, capacity) symbols of the segments'
+    true chains (uint8, on the device), the bit where the sequential tail
+    starts, the segments' symbol count, and the start bit of symbol number
+    ``capacity`` when ``capacity`` < total (else None). Raises nothing for
+    the stream's content: a true chain with an invalid window never
+    resolves.
+    """
+    n_segs, seg_bits = plan
+    if seg_bits > MAX_STARTS_SEG_BITS:
+        return None  # no int16 starts to merge at
+    dev = words.device
+    m = _merge(words, start_bit, plan, dt)
+    max_syms, syms0, starts0, exits0 = m.max_syms, m.syms0, m.starts0, m.exits0
+    syms_a, starts_a, i_eff, j_s, counts, fail = (m.syms_a, m.starts_a, m.i_eff, m.j_s,
+                                                  m.counts, m.fail)
 
     def read(flag):
         """One host read: (total, last exit, the cut's bit or 0, flag)."""
         cum = torch.cumsum(counts, 0)
         cut_bit = torch.zeros((), dtype=torch.int64, device=dev)
         if capacity is not None:
-            # the segment holding symbol number `capacity` (0-based), its slot
-            s_c = (cum <= capacity).sum().clamp(max=n_segs - 1)
-            within = capacity - torch.where(s_c > 0, cum[(s_c - 1).clamp(min=0)], 0)
-            ie = i_eff[s_c]
-            bit = torch.where(within < ie, starts_a[s_c, within.clamp(0, a - 1)],
-                              starts0[s_c, (j_s[s_c] + within - ie).clamp(0, max_syms - 1)])
-            cut_bit = s_c * seg_bits + bit.long()
+            cut_bit = _cut_bit(cum, capacity, seg_bits, i_eff, j_s, starts_a, starts0)
         return torch.stack([cum[-1], exits0[-1].long(), cut_bit, flag.long()]).tolist()
 
     total, last_exit, cut_bit, n_fail = read(fail.sum())
@@ -388,14 +441,9 @@ def stitch(words: torch.Tensor, start_bit: int, plan: tuple, dt,
     if n_fail > lanes:
         return None
     if n_fail:
-        # 5. repair: the failed segments' ids in lanes 0..n_fail-1 (a
-        # scatter by their rank among the failures), the rest dead
-        rank = torch.cumsum(fail, 0) - 1
-        lane = torch.where(fail, rank, lanes)  # slot `lanes` takes the rest, dropped
-        seg_ids = torch.full((lanes + 1,), -1, dtype=torch.int32, device=dev)
-        seg_ids.scatter_(0, lane, torch.arange(n_segs, dtype=torch.int32, device=dev))
-        seg_ids = seg_ids[:lanes]
-        ent_r = torch.where(seg_ids >= 0, entries1[seg_ids.clamp(min=0).long()], 0)
+        # 5. repair: the failed segments' ids in lanes 0..n_fail-1, the rest dead
+        seg_ids = _repair_lanes(fail, lanes)[0]
+        ent_r = torch.where(seg_ids >= 0, m.entries1[seg_ids.clamp(min=0).long()], 0)
         starts_r = torch.empty((lanes, max_syms), dtype=torch.int16, device=dev)
         syms_r, count_r, exits_r, bad_r = decode_segments(
             words, ent_r, seg_bits, max_syms, dt, starts=starts_r, seg_ids=seg_ids)
@@ -416,6 +464,29 @@ def stitch(words: torch.Tensor, start_bit: int, plan: tuple, dt,
     outcomes["segments_repaired"] += n_fail
     cut = cut_bit if capacity is not None and total > capacity else None
     return body, n_segs * seg_bits + last_exit - seg_bits, total, cut
+
+
+def _cut_bit(cum: torch.Tensor, capacity: int, seg_bits: int, i_eff: torch.Tensor,
+             j_s: torch.Tensor, starts_a: torch.Tensor, starts0: torch.Tensor,
+             repaired: tuple | None = None) -> torch.Tensor:
+    """The start bit (0-d int64, in the words' frame) of symbol number
+    ``capacity`` (0-based) of the stitched chains, whose segments' symbol
+    counts have the inclusive prefix ``cum``: its segment, then its slot in
+    the patch's head or the full pass's tail. ``repaired`` = (flag per
+    segment, its repair lane, the repair's starts) takes the repaired
+    segments' starts from their lanes instead."""
+    n_segs, max_syms = starts0.shape
+    a = starts_a.shape[1]
+    # one-element index tensors: indexing by a 0-d tensor reads it on the host
+    s_c = (cum <= capacity).sum().clamp(max=n_segs - 1).reshape(1)
+    within = capacity - torch.where(s_c > 0, cum[(s_c - 1).clamp(min=0)], 0)
+    ie = i_eff[s_c]
+    bit = torch.where(within < ie, starts_a[s_c, within.clamp(0, a - 1)],
+                      starts0[s_c, (j_s[s_c] + within - ie).clamp(0, max_syms - 1)])
+    if repaired is not None:
+        take, lane_of, starts_r = repaired
+        bit = torch.where(take[s_c], starts_r[lane_of[s_c], within.clamp(0, max_syms - 1)], bit)
+    return (s_c * seg_bits + bit.long()).reshape(())
 
 
 def _fixpoint_body(words: torch.Tensor, start_bit: int, plan: tuple, dt,
@@ -507,18 +578,27 @@ def _drain(words: torch.Tensor, start_bit: int, total_bits: int, dt,
     return torch.cat([body, tail]), end_bit
 
 
+def _prefix(start_bit: int, total_bits: int, capacity: int | None,
+            table: HuffmanTable) -> tuple[int, bool]:
+    """(bits, whole stream?) that a drain of at most ``capacity`` symbols
+    decodes: a prefix that holds ``capacity + 1`` codes and a 32-bit
+    window, in whole words, or the whole stream."""
+    if capacity is None:
+        return total_bits, True
+    need_bits = start_bit + (capacity + 1) * int(table.max_len) + 64
+    view_words = -(-total_bits // 32)
+    prefix_words = min(view_words, -(-need_bits // 32))
+    full = prefix_words == view_words
+    return (total_bits if full else prefix_words * 32), full
+
+
 def _drain_capped(words: torch.Tensor, start_bit: int, total_bits: int,
                   capacity: int, dt, seg_words: int):
     """At most ``capacity`` symbols of ``words`` from ``start_bit`` (< 32):
     (symbols, end_bit, more), the contract of the JAX package's
     ``selfsync_decode_capped_words``. Only a prefix that holds ``capacity + 1`` codes and a
     32-bit window is decoded, so the cost is O(capacity)."""
-    table = dt.table
-    need_bits = start_bit + (capacity + 1) * int(table.max_len) + 64
-    view_words = -(-total_bits // 32)
-    prefix_words = min(view_words, -(-need_bits // 32))
-    full = prefix_words == view_words
-    prefix_bits = total_bits if full else prefix_words * 32
+    prefix_bits, full = _prefix(start_bit, total_bits, capacity, dt.table)
 
     def tail(from_bit: int, budget: int):
         out, end_bit, more = decode_tail(words, from_bit, prefix_bits, budget, dt)
@@ -604,6 +684,150 @@ def selfsync_decode_capped_words(buf: torch.Tensor, nbytes: int, consumed_bit: i
         view, sb, total_bits, capacity, DeviceTable.for_table(table, buf.device), seg_words
     )
     return _host_bytes(out), base + end_bit, more
+
+
+# The fused streaming calls' uncapped downloads: RATE_MARGIN times what the
+# last call took (the drain: symbols a segment bit, and HINT_SLACK symbols
+# more; the encoder, stream.py: bits a symbol), the JAX package's margin
+# (tpu_huffman/stream.py:455-457).
+RATE_MARGIN = 1.15
+HINT_SLACK = 64
+
+
+def _walk_fused(words: torch.Tensor, start_bit: int, limit_bit: int, capacity: int | None,
+                dt):
+    """A drain too short for kernel segments: the walk alone, (symbols,
+    end_bit, more) from one download. Raises UnknownSymbolError where the
+    reference would."""
+    syms, info = stream_decode.decode_stream(words, start_bit, limit_bit, capacity, dt)
+    (n, end_bit, status), (host,) = download(info, syms)
+    if status == stream_decode.STATUS_UNKNOWN_SYMBOL:
+        raise UnknownSymbolError()
+    return host[:n].tobytes(), end_bit, status == stream_decode.STATUS_OUTPUT_FULL
+
+
+def _segments_fused(words: torch.Tensor, start_bit: int, limit_bit: int, plan: tuple,
+                    capacity: int | None, rate: float | None, dt):
+    """Steps 1-6 of the stitch and the sequential tail with no host read,
+    then one download: (symbols, end_bit, more, rate), or None when a
+    segment is left unresolved after the repair.
+
+    The repair is launched every time, at max(R_MAX, S / 32) lanes with
+    its segment ids built on the device (all dead on a clean stream). The
+    body is assembled at a size fixed on the host: at most ``capacity``
+    symbols, or ``rate`` times the segments' bits. The tail walk
+    (:func:`stream_decode.decode_stream_dev`) reads its start bit and
+    budget from the device; its output covers the last two segments."""
+    n_segs, seg_bits = plan
+    dev = words.device
+    table = dt.table
+    min_len = max(int(table.min_len), 1)
+    m = _merge(words, start_bit, plan, dt)
+    # 5. the repair
+    lanes = max(R_MAX, n_segs >> 5)
+    seg_ids, rank = _repair_lanes(m.fail, lanes)
+    live = seg_ids >= 0
+    ids = seg_ids.clamp(min=0).long()
+    starts_r = torch.empty((lanes, m.max_syms), dtype=torch.int16, device=dev)
+    syms_r, count_r, exits_r, bad_r = decode_segments(
+        words, torch.where(live, m.entries1[ids], 0), seg_bits, m.max_syms, dt,
+        starts=starts_r, seg_ids=seg_ids)
+    n_fail = m.fail.sum()
+    ok = (n_fail <= lanes) & (~live | ((bad_r == 0) & (exits_r == m.exits0[ids]))).all()
+    # a repaired segment is its repaired row whole: no head, all tail
+    take = m.fail & (rank < lanes)
+    lane_of = torch.where(take, rank, 0)
+    tail_rows = torch.where(take[:, None], syms_r[lane_of], m.syms0)
+    i_eff = torch.where(take, 0, m.i_eff)
+    j_s = torch.where(take, 0, m.j_s)
+    counts = torch.where(take, count_r.long()[lane_of], m.counts)
+    cum = torch.cumsum(counts, 0)
+    total = cum[-1]
+    # 6. the body, at a size fixed on the host
+    most = (n_segs * seg_bits + int(table.max_len)) // min_len + 1
+    if capacity is not None:
+        n_body = min(capacity, most)
+    elif rate is None:
+        n_body = most
+    else:
+        n_body = min(most, int(rate * n_segs * seg_bits) + HINT_SLACK)
+    body = _assemble(m.syms_a, tail_rows, i_eff, j_s, counts, n_body)
+    cut_bit = torch.zeros_like(total)
+    if capacity is not None:
+        cut_bit = _cut_bit(cum, capacity, seg_bits, i_eff, j_s, m.starts_a, m.starts0,
+                           (take, lane_of, starts_r))
+    # 7. the tail, from the last segment's exit with the budget left; it
+    # holds at most the last two segments' bits (_plan_segments)
+    slots = 2 * seg_bits // min_len + 1
+    budget = capacity - total if capacity is not None else torch.full_like(total, slots)
+    tail_start = (n_segs - 1) * seg_bits + m.exits0[-1].long()
+    args = torch.stack([tail_start, torch.full_like(total, limit_bit), budget])
+    tail, info = stream_decode.decode_stream_dev(words, args, slots, dt)
+    scalars = torch.cat([torch.stack([total, ok.long(), n_fail, cut_bit]), info])
+    (total, ok, n_fail, cut_bit, n_tail, end_bit, status), (body_h, tail_h) = download(
+        scalars, body, tail)
+    if not ok:
+        return None
+    outcomes["repaired" if n_fail else "stitched"] += 1
+    outcomes["segments_repaired"] += n_fail
+    if capacity is not None and total > capacity:
+        return body_h[:capacity].tobytes(), cut_bit, True, rate
+    if status == stream_decode.STATUS_UNKNOWN_SYMBOL:
+        raise UnknownSymbolError()
+    out = body_h[:total].tobytes()
+    if total > n_body:  # the rate hint fell short: the rest of the body
+        outcomes["second_downloads"] += 1
+        out += _host_bytes(_assemble(m.syms_a, tail_rows, i_eff, j_s, counts, total)[n_body:])
+    if capacity is None:
+        rate = RATE_MARGIN * total / (n_segs * seg_bits)
+    return (out + tail_h[:n_tail].tobytes(), end_bit,
+            status == stream_decode.STATUS_OUTPUT_FULL, rate)
+
+
+def fused_drain_words(buf: torch.Tensor, nbytes: int, consumed_bit: int, table: HuffmanTable,
+                      capacity: int | None, rate: float | None = None,
+                      seg_words: int | None = None):
+    """The streaming decoder's bulk drain as one sequence of launches and
+    one download (ports the JAX package's ``fused_drain_words`` and its
+    ``_FusedFallback`` rule).
+
+    The same contract as :func:`selfsync_decode_capped_words` (uncapped
+    with ``capacity`` None, ``more`` then False), plus ``rate``: the symbols
+    a segment bit held in the last uncapped call, with a margin, which
+    sizes this call's download (None: the most the bits can hold). Returns
+    (symbols, end_bit, more, rate), the rate this call saw or the one it
+    was given. A body longer than the download takes a second one
+    (``outcomes["second_downloads"]``).
+
+    A segment left unresolved after the repair (a corrupt stream, more
+    failures than the repair's lanes), or a capped prefix that ran short
+    (which its bound rules out), runs the classic drain on the same buffer
+    instead (``outcomes["fallback"]``); it owns the errors of the body. An
+    unknown symbol in the tail raises UnknownSymbolError here.
+    """
+    if capacity is not None and capacity < 0:
+        raise ValueError(f"capacity must be >= 0, got {capacity}")
+    seg_words = _seg_words(seg_words)
+    view, sb, total_bits, base = words_view(buf, nbytes, consumed_bit)
+    if total_bits <= sb:
+        return b"", consumed_bit, False, rate
+    dt = DeviceTable.for_table(table, buf.device)
+    prefix_bits, full = _prefix(sb, total_bits, capacity, table)
+    plan = _plan_segments(prefix_bits, seg_words)
+    got = None
+    if plan is None:
+        got = (*_walk_fused(view, sb, prefix_bits, capacity, dt), rate)
+    elif plan[1] <= MAX_STARTS_SEG_BITS:
+        got = _segments_fused(view, sb, prefix_bits, plan, capacity, rate, dt)
+    if got is None or (capacity is not None and not got[2] and not full):
+        outcomes["fallback"] += 1
+        if capacity is None:
+            return (*selfsync_decode_words(buf, nbytes, consumed_bit, table, seg_words), False,
+                    rate)
+        return (*selfsync_decode_capped_words(buf, nbytes, consumed_bit, table, capacity,
+                                              seg_words), rate)
+    out, end_bit, more, rate = got
+    return out, base + end_bit, more, rate
 
 
 def selfsync_decode_capped(data, table: HuffmanTable, capacity: int,

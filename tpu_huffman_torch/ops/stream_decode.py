@@ -27,6 +27,13 @@ symbol, and the semantics reference.
 :func:`decode_stream` runs the blocked plain version for tensors on the CPU
 and launches the kernel for tensors on a CUDA device; there is no fallback
 from one to the other. ``launches`` counts the kernel launches.
+
+:func:`decode_stream_dev` is the same walk with its start bit, stream
+length and budget read from an int64 tensor on the device, for a caller
+whose earlier launches computed them (the streaming decoder's fused drain,
+``ops/selfsync.py``): the host sizes its output and shape from a bound and
+never reads the scalars. :func:`decode_stream_dev_plain` is its plain
+version.
 """
 
 from __future__ import annotations
@@ -60,7 +67,7 @@ OVERLAP_BITS = 256
 # The CPU route's: small, so that the tests' walks span many windows.
 CPU_WINDOW_WORDS = 64
 CPU_SUB_BITS = 64
-launches = {"stream_decode": 0}
+launches = {"stream_decode": 0, "stream_decode_dev": 0}
 
 
 def out_size(dt, start_bit: int, total_bits: int, out_capacity: int | None) -> int:
@@ -200,6 +207,62 @@ def _launch(words: torch.Tensor, start_bit: int, total_bits: int, out_capacity: 
     _build.check("thc_stream_decode", err)
     launches["stream_decode"] += 1
     return out, info
+
+
+def _check_dev(words: torch.Tensor, args: torch.Tensor, out_slots: int, dt) -> None:
+    if words.dtype != torch.int32 or words.dim() != 1:
+        raise ValueError("words must be a 1-D int32 tensor")
+    if args.dtype != torch.int64 or tuple(args.shape) != (3,) or args.device != words.device:
+        raise ValueError(f"args must be an int64 tensor of shape (3,) on {words.device}")
+    if out_slots < 0:
+        raise ValueError(f"out_slots must be >= 0, got {out_slots}")
+    if dt.l0.device != words.device:
+        raise ValueError("table and words are on different devices")
+
+
+def decode_stream_dev(words: torch.Tensor, args: torch.Tensor, out_slots: int, dt):
+    """:func:`decode_stream` with its scalars in device memory: ``args`` is
+    int64[3] = (start_bit, total_bits, budget) on the words' device, a
+    negative start or budget counting as 0.
+
+    Writes at most min(budget, ``out_slots``) symbols into uint8[out_slots]
+    and returns (symbols, info) as :func:`decode_stream` does. The result
+    equals ``decode_stream(words, start_bit, total_bits, budget)``'s when
+    ``out_slots`` covers the most symbols the bits can hold,
+    ``(total_bits - start_bit) // min_len + 1``: the caller's bound. The
+    kernel's shape is :func:`card_shape`'s for a walk of ``out_slots`` codes
+    of the longest length; nothing waits for the device.
+    """
+    _check_dev(words, args, out_slots, dt)
+    dev = words.device
+    if dev.type == "cpu":
+        return decode_stream_dev_plain(words, args, out_slots, dt)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    window_words, sub_bits = card_shape(out_slots * int(dt.table.max_len), dt)
+    threads = geometry(window_words, sub_bits)
+    out = torch.empty(out_slots, dtype=torch.uint8, device=dev)
+    info = torch.empty(3, dtype=torch.int64, device=dev)
+    words, args = words.contiguous(), args.contiguous()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _build.load().thc_stream_decode_dev(
+        dev.index, words.data_ptr(), words.numel(), args.data_ptr(), out_slots,
+        dt.l0.data_ptr(), dt.root_bits, dt.l1.data_ptr(), dt.l1.numel(),
+        int(dt.table.max_len), int(dt.table.min_len), threads, sub_bits,
+        min(OVERLAP_BITS, sub_bits), out.data_ptr(), info.data_ptr(), stream,
+    )
+    _build.check("thc_stream_decode_dev", err)
+    launches["stream_decode_dev"] += 1
+    return out, info
+
+
+def decode_stream_dev_plain(words: torch.Tensor, args: torch.Tensor, out_slots: int, dt):
+    """Plain version of :func:`decode_stream_dev`: reads ``args`` and runs
+    :func:`decode_stream_blocked_plain` with the same clamps."""
+    start_bit, total_bits, budget = args.tolist()
+    out = torch.zeros(out_slots, dtype=torch.uint8, device=words.device)
+    return decode_stream_blocked_plain(words, max(start_bit, 0), total_bits,
+                                       min(max(budget, 0), out_slots), dt, out=out)
 
 
 def decode_stream_plain(words: torch.Tensor, start_bit: int, total_bits: int,

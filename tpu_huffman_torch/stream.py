@@ -9,29 +9,37 @@ output, and the next call goes on where it stopped. The state between calls
 is plain data: ``state()`` gives the JAX package's dicts with the same keys
 and meaning, so a stream saved by one package continues in the other.
 
-Encoder. One ``encode_chunk`` call stages at most ``8 * capacity // min_len
-+ 2`` symbols on the device (no more can fit), runs the count kernel, takes
-the tiles' int64 prefix with ``torch.cumsum``, finds the capacity cut (the
-tile holding it from the prefix, the symbol from an exact cumsum over that
-tile's <= 4096 codes), reads the scalars back in one transfer and packs the
-consumed symbols behind the carry (``ops/pack_encode.py``): the tile
-offsets move by the carry's length and the carry is OR-ed into word 0. A
-code that straddles the cut leaves its low bits as the next carry (the
-reference's ``overflow_bits``, huffman.c:88-99). Bit offsets are int64, so
-one call takes any input: nothing segments past 2^31 bits.
+Encoder (ports the JAX package's fused ``_encode_chunk_bulk``). One
+``encode_chunk`` call is one sequence of launches on the device and one
+download: it stages at most ``8 * capacity // min_len + 2`` symbols (no
+more can fit), runs the count kernel, takes the tiles' int64 prefix with
+``torch.cumsum``, finds the capacity cut (the tile holding it from the
+prefix, the symbol from an exact cumsum over that tile's <= 4096 codes),
+packs every staged symbol behind the carry with the pack's device-total
+form (``ops/pack_encode.py``: the tile offsets move by the carry's length,
+the total is read from device memory, and the carry is OR-ed into word
+0), and downloads the scalars with the words. A capped call downloads
+``capacity // 4 + 2`` words, whose first ``capacity`` bytes are the
+carry and the codes the reference writes; an uncapped one as many as the
+table's rate hint says, and a second download fetches the rest when the
+hint falls short (``encode_outcomes``). A code that straddles the cut
+leaves its low bits as the next carry (the reference's ``overflow_bits``,
+huffman.c:88-99). Bit offsets are int64, so one call takes any input:
+nothing segments past 2^31 bits.
 
 Decoder. The retained stream lives on the device as words
 (:class:`_DeviceRemainder`): a call uploads only its new bytes and
 downloads only the symbols it emits. Up to ``BULK_DECODE_THRESHOLD``
-unconsumed bytes go through one block's walk (``stream_decode``);
-more take the self-sync drains of ``ops/selfsync.py``, uncapped or capped,
-whose cost is O(capacity) when capped.
+unconsumed bytes go through one block's walk (``stream_decode``); more
+take ``selfsync.fused_drain_words`` (ports the JAX package's
+``_drain_fused``): the compaction slide, decided on the host before the
+call, the append, the self-sync decode with its repair and the tail walk
+as one sequence of launches with one download, O(capacity) when capped.
+A segment left unresolved falls back to the classic drains of
+``ops/selfsync.py`` over the same buffer.
 
-Not ported: the JAX package's fused one-dispatch drain (``_drain_fused``,
-``fused_drain_words``, ``_FusedFallback``), which fuses four dispatches
-into one against a TPU dispatch floor and gives the same results, and its
-auto-segmenting of one-shot encodes at 2^31 bits (the port has no int32
-bit offsets to protect).
+Not ported: the JAX package's auto-segmenting of one-shot encodes at 2^31
+bits (the port has no int32 bit offsets to protect).
 """
 
 from __future__ import annotations
@@ -43,7 +51,8 @@ import torch
 
 from .errors import ShortBufferError, UnknownSymbolError
 from .ops import pack_encode, selfsync
-from .ops.bitpack import MASK32, merge_words, slide_words, stage_words, words_to_bytes
+from .ops.bitpack import (MASK32, download, merge_words, slide_words, stage_words,
+                          words_to_bytes)
 from .ops.encode import DEFAULT_EOS_PADDING, DeviceTable, resolve_device, stage_bytes
 from .tables import HuffmanTable
 
@@ -52,6 +61,8 @@ from .tables import HuffmanTable
 BULK_DECODE_THRESHOLD = 65536
 
 _TILE = pack_encode.TILE  # symbols per count tile
+# fused encode_chunk calls whose words outgrew the first download
+encode_outcomes = {"second_downloads": 0}
 
 
 @dataclasses.dataclass
@@ -134,73 +145,89 @@ class HuffmanEncoder:
         UnknownSymbolError(index, symbol) at the first symbol without a
         code, before any output (the reference writes the bytes before it
         first, huffman.c:62-64).
+
+        One sequence of launches and one download (see the module's
+        docstring); a call whose budget the carry alone spends, or with no
+        symbols, runs on the host.
         """
+        symbols, writable = self._staged(data, capacity)
+        if symbols.size and (writable is None or writable > self._carry_len):
+            return self._encode_fused(symbols, writable)
+        return self._encode_host(symbols, writable)
+
+    def _staged(self, data, capacity: int | None) -> tuple[np.ndarray, int | None]:
+        """The input's symbols, cut to those that can fit ``capacity``, and
+        the writable bits (None: unbounded)."""
         symbols = _as_u8(data)
-        writable = None
-        if capacity is not None:
-            capacity = int(capacity)
-            if capacity < 0:
-                raise ValueError(f"capacity must be >= 0, got {capacity}")
-            writable = 8 * capacity
-            # no more than this many codes can fit: stage O(capacity) bytes,
-            # not the rest of the caller's input
-            symbols = symbols[: writable // max(int(self.table.min_len), 1) + 2]
+        if capacity is None:
+            return symbols, None
+        capacity = int(capacity)
+        if capacity < 0:
+            raise ValueError(f"capacity must be >= 0, got {capacity}")
+        writable = 8 * capacity
+        # no more than this many codes can fit: stage O(capacity) bytes,
+        # not the rest of the caller's input
+        return symbols[: writable // max(int(self.table.min_len), 1) + 2], writable
+
+    def _encode_host(self, symbols: np.ndarray, writable: int | None) -> EncodeResult:
+        """The calls that write no code: no symbols, or a budget that the
+        carry alone spends (then the staged symbols are a few, checked
+        here)."""
         n = symbols.size
-        carry_pat, carry_len = self._carry_pattern, self._carry_len
-        sym = offs = cut = None
-        packed_bits = 0
         if n:
-            sym, offs, packed_bits, cut = self._stage_and_cut(symbols, writable)
-        total_bits = packed_bits + carry_len
-        if total_bits == 0:
+            bad = np.flatnonzero(self.table.lengths[symbols] == 0)
+            if bad.size:
+                raise UnknownSymbolError(index=int(bad[0]), symbol=int(symbols[bad[0]]))
+        carry_pat, carry_len = self._carry_pattern, self._carry_len
+        if n == 0 and carry_len == 0:
             return EncodeResult(b"", 0, True)
-        if writable is None or total_bits <= writable:
-            out = self._pack(sym, offs, n, total_bits, self.eos_padding)
+        if n == 0 and (writable is None or carry_len <= writable):
+            # the carry alone, padded
+            nbytes = -(-carry_len // 8)
+            pad_len = 8 * nbytes - carry_len
+            value = (carry_pat << pad_len) | (self.eos_padding & ((1 << pad_len) - 1))
             self.reset()
-            return EncodeResult(out, n, True)
+            return EncodeResult(value.to_bytes(nbytes, "big"), 0, True)
         if writable == 0:
             return EncodeResult(b"", 0, False)
-        if carry_len >= writable:
-            # The pending carry fills the budget alone: emit its top bits and
-            # carry the rest, consuming no input (reference: the overflow
-            # flush of huffman.c:148-159 meets the short-buffer path of
-            # huffman.c:88-99).
-            over = carry_len - writable
-            self._carry_pattern = carry_pat & ((1 << over) - 1)
-            self._carry_len = over
-            return EncodeResult((carry_pat >> over).to_bytes(capacity, "big"), 0, False)
-        consumed, cut_bits, straddle, over, pattern = cut
-        out = self._pack(sym, offs, consumed, cut_bits + carry_len, 0)[:capacity]
-        self._carry_pattern, self._carry_len = (pattern, over) if straddle else (0, 0)
-        return EncodeResult(out, consumed, False)
+        # The pending carry fills the budget alone: emit its top bits and
+        # carry the rest, consuming no input (reference: the overflow flush
+        # of huffman.c:148-159 meets the short-buffer path of
+        # huffman.c:88-99).
+        over = carry_len - writable
+        self._carry_pattern = carry_pat & ((1 << over) - 1)
+        self._carry_len = over
+        return EncodeResult((carry_pat >> over).to_bytes(writable // 8, "big"), 0, False)
 
-    def _stage_and_cut(self, symbols: np.ndarray, writable: int | None):
-        """Stage the symbols, count their tiles, and find the capacity cut.
-
-        Returns (symbols on the device, tile offsets int64, total bits,
-        cut) with cut = (consumed, bits of the consumed codes, straddle,
-        over, carry pattern) in the frame without the carry, or None when
-        uncapped. One host transfer brings back every scalar.
-        """
+    def _count(self, symbols: np.ndarray, writable: int | None):
+        """Stage the symbols and count their tiles; with ``writable``, find
+        the capacity cut. Returns (symbols on the device, the table on the
+        device, the tiles' bits, their int64 inclusive prefix, scalars):
+        scalars is [first unknown symbol (n if none), total bits] and, when
+        capped, the cut's [consumed, bits of the consumed codes, straddle,
+        over, carry pattern] in the frame without the carry, all one-element
+        int64 tensors on the device: nothing here waits for it."""
         n = symbols.size
         dev = self.device
         dt = DeviceTable.for_table(self.table, dev)
         sym = stage_bytes(symbols, dev)
         tile_bits, stats = pack_encode.count(sym, dt)
         incl = torch.cumsum(tile_bits, 0, dtype=torch.int64)
-        scalars = [stats[0], incl[-1]]
+        scalars = [stats[:1], incl[-1:]]
         if writable is not None:
             wbp = writable - self._carry_len  # the cut in the frame without the carry
-            # the first tile that ends past the cut, and its codes' ends
-            j = (incl <= wbp).sum().clamp(max=incl.numel() - 1)
+            # the first tile that ends past the cut, and its codes' ends (one-element
+            # index tensors: indexing by a 0-d tensor reads it on the host)
+            j = (incl <= wbp).sum().clamp(max=incl.numel() - 1).reshape(1)
             idx = j * _TILE + torch.arange(_TILE, device=dev)
             valid = idx < n
             sym_j = sym[idx.clamp(max=n - 1)].to(torch.int64)
             lens_j = torch.where(valid, dt.lengths[sym_j].to(torch.int64), 0)
-            ends = incl[j] - tile_bits[j] + torch.cumsum(lens_j, 0)
-            k_w = ((ends <= wbp) & valid).sum()  # codes of tile j that fit whole
+            start_j = incl[j] - tile_bits[j]
+            ends = start_j + torch.cumsum(lens_j, 0)
+            k_w = ((ends <= wbp) & valid).sum().reshape(1)  # codes of tile j that fit whole
             kc = k_w.clamp(max=_TILE - 1)
-            start_k = torch.where(k_w > 0, ends[(k_w - 1).clamp(min=0)], incl[j] - tile_bits[j])
+            start_k = torch.where(k_w > 0, ends[(k_w - 1).clamp(min=0)], start_j)
             consumed = j * _TILE + k_w
             straddle = (consumed < n) & (start_k < wbp)
             over = torch.where(straddle, ends[kc] - wbp, 0)
@@ -209,23 +236,79 @@ class HuffmanEncoder:
             scalars += [consumed + straddle.to(torch.int64),
                         torch.where(straddle, ends[kc], start_k), straddle.to(torch.int64),
                         over, pattern]
-        vals = torch.stack(scalars).tolist()
+        return sym, dt, tile_bits, incl, scalars
+
+    def _encode_fused(self, symbols: np.ndarray, writable: int | None) -> EncodeResult:
+        """Count, prefix, cut, the device-total pack of every staged symbol
+        behind the carry, then one download of the scalars and the words'
+        bytes: ``capacity // 4 + 2`` words when capped, else as many as the
+        table's rate hint says (a second download fetches the rest)."""
+        n = symbols.size
+        carry_pat, carry_len = self._carry_pattern, self._carry_len
+        sym, dt, tile_bits, incl, scalars = self._count(symbols, writable)
+        # the device-total pack's buffer: n codes of the longest length, the
+        # carry and the pad (the download below is what the host fixes)
+        n_words = -(-(n * int(self.table.max_len) + carry_len + 7) // 32)
+        words, _, _ = pack_encode.pack_device_total(
+            sym, dt, incl - tile_bits + carry_len, incl[-1:] + carry_len,
+            self.eos_padding & 0xFF, n_words)
+        if carry_len:
+            words[:1] |= _i32((carry_pat << (32 - carry_len)) & MASK32)
+        if writable is not None:
+            k = writable // 32 + 2
+        elif dt.encode_rate is None:
+            k = n_words
+        else:
+            k = (int(dt.encode_rate * n) + carry_len + 7) // 32 + 2
+        k = min(k, n_words)
+        vals, (head,) = download(torch.cat(scalars), words_to_bytes(words[:k]))
         first_bad, total = vals[0], vals[1]
         if first_bad < n:
             raise UnknownSymbolError(index=first_bad, symbol=int(symbols[first_bad]))
-        cut = None if writable is None else (vals[2], vals[3], bool(vals[4]), vals[5], vals[6])
-        return sym, incl - tile_bits, total, cut
+        total_bits = total + carry_len
+        if writable is None or total_bits <= writable:
+            nbytes = -(-total_bits // 8)
+            out = head[:nbytes].tobytes()
+            if nbytes > head.size:  # the rate hint fell short: the rest of the words
+                encode_outcomes["second_downloads"] += 1
+                out += words_to_bytes(words[k:-(-nbytes // 4)])[: nbytes - head.size].cpu(
+                ).numpy().tobytes()
+            if writable is None:
+                dt.encode_rate = selfsync.RATE_MARGIN * total / n
+            self.reset()
+            return EncodeResult(out, n, True)
+        consumed, _cut_bits, straddle, over, pattern = vals[2:]
+        self._carry_pattern, self._carry_len = (pattern, over) if straddle else (0, 0)
+        return EncodeResult(head[: writable // 8].tobytes(), consumed, False)
+
+    def _encode_chunk_classic(self, data, capacity: int | None = None) -> EncodeResult:
+        """:meth:`encode_chunk` as two downloads: the scalars, then the
+        consumed symbols packed with their length by value. The form the
+        fused call replaced, with the same results; the tests and
+        chip_smoke.py hold the fused call against it."""
+        symbols, writable = self._staged(data, capacity)
+        n = symbols.size
+        if not n or (writable is not None and writable <= self._carry_len):
+            return self._encode_host(symbols, writable)
+        sym, _dt, tile_bits, incl, scalars = self._count(symbols, writable)
+        vals = torch.cat(scalars).tolist()
+        if vals[0] < n:
+            raise UnknownSymbolError(index=vals[0], symbol=int(symbols[vals[0]]))
+        offs, total_bits = incl - tile_bits, vals[1] + self._carry_len
+        if writable is None or total_bits <= writable:
+            out = self._pack(sym, offs, n, total_bits, self.eos_padding)
+            self.reset()
+            return EncodeResult(out, n, True)
+        consumed, cut_bits, straddle, over, pattern = vals[2:]
+        out = self._pack(sym, offs, consumed, cut_bits + self._carry_len, 0)[: writable // 8]
+        self._carry_pattern, self._carry_len = (pattern, over) if straddle else (0, 0)
+        return EncodeResult(out, consumed, False)
 
     def _pack(self, sym, offs, n: int, total_bits: int, eos_padding: int) -> bytes:
         """The carry, then the first ``n`` staged symbols (``sym``, with
         their tiles' offsets ``offs``), padded with the low bits of
         ``eos_padding`` to a whole byte; ``total_bits`` counts the carry."""
         carry_pat, carry_len = self._carry_pattern, self._carry_len
-        if n == 0:  # the carry alone
-            nbytes = -(-carry_len // 8)
-            pad_len = 8 * nbytes - carry_len
-            value = (carry_pat << pad_len) | (eos_padding & ((1 << pad_len) - 1))
-            return value.to_bytes(nbytes, "big")
         sym, offs = sym[:n], offs[: pack_encode.n_tiles(n)] + carry_len
         dt = DeviceTable.for_table(self.table, self.device)
         pad_len = pack_encode.pad_code(total_bits, eos_padding)[1]
@@ -324,6 +407,7 @@ class HuffmanDecoder:
         self.allow_growth = allow_growth
         self.device = resolve_device(device)
         self._rem = _DeviceRemainder(self.device)
+        self._rate = None  # the bulk drain's rate hint (selfsync.fused_drain_words)
 
     def reset(self) -> None:
         """Reference: aws_huffman_decoder_reset (source/huffman.c:38-42)."""
@@ -363,6 +447,7 @@ class HuffmanDecoder:
         if capacity is not None and int(capacity) < 0:
             raise ValueError(f"capacity must be >= 0, got {capacity}")
         rem = self._rem
+        rem.compact()  # decided on the host, before the append (as the JAX package's)
         old_nbytes = rem.nbytes
         rem.append(_as_u8(data))
         try:
@@ -371,19 +456,17 @@ class HuffmanDecoder:
             rem.truncate(old_nbytes)
             raise
         rem.consumed_bit = end_bit
-        rem.compact()
         return DecodeResult(out, not more)
 
     def _drain(self, capacity: int | None) -> tuple[bytes, int, bool]:
         rem = self._rem
         if 8 * rem.nbytes <= rem.consumed_bit:
             return b"", rem.consumed_bit, False
-        args = (rem.buf, rem.nbytes, rem.consumed_bit, self.table)
         if (rem.nbytes - (rem.consumed_bit >> 3) > BULK_DECODE_THRESHOLD
                 and selfsync.supports(self.table)):
-            if capacity is None:
-                return (*selfsync.selfsync_decode_words(*args), False)
-            return selfsync.selfsync_decode_capped_words(*args, capacity)
+            out, end_bit, more, self._rate = selfsync.fused_drain_words(
+                rem.buf, rem.nbytes, rem.consumed_bit, self.table, capacity, self._rate)
+            return out, end_bit, more
         view, start_bit, total_bits, base = selfsync.words_view(rem.buf, rem.nbytes,
                                                                 rem.consumed_bit)
         syms, end_bit, more = selfsync.decode_tail(

@@ -119,8 +119,12 @@ Phases (any failure raises and the script exits non-zero):
  10. the profiling probes (tpu_huffman_torch.prof, the counterparts of the
      Pallas probes in scripts/prof/), driven through each module's run()
      with the launch counters reset just before: every form of lut_chain
-     (P1, P2, P3) and lut_wide (P6), lut_wide_mma and lut_chain_mma
-     against lut_wide / lut_chain, every kind and form of step_chain (P4),
+     (P1, P2, P3) and lut_wide (P6; its word form, one 32-bit marker-bit
+     word a lookup, timed beside smem, the design before it), every mode
+     of lut_wide_mma (the mma.sync kernel it had, that kernel's split, the
+     wgmma and reworked mma.sync kernels, each with its registers and
+     blocks an SM) and lut_chain_mma against lut_wide / lut_chain, every
+     kind and form of step_chain (P4),
      every pack_ablate mode (P5; the per-thread loop of the design before
      the tile loop at chunks 32 and 4, and the tile loop, both against
      encode_pack's words), and
@@ -1418,7 +1422,8 @@ def phase_probes(torch, dev) -> list:
     print(f"phase 10 lut_wide P6, {prof.FILL_ELEMENTS} elements x {lut.R_WIDE} rounds: "
           + ", ".join(f"{f} {r['ms']:.4f} ms ({r['ns_per_lookup']:.5f} ns/lookup)"
                       for f, r in wide.items())
-          + f"; plain {wide['smem']['plain_ms']:.4f} ms")
+          + f"; smem again after the others {wide['smem']['again_ms']:.4f} ms; plain "
+          f"{wide['smem']['plain_ms']:.4f} ms, word's plain {wide['word']['plain_ms']:.4f} ms")
     for form, by_w in res["lut"]["sweep"].items():
         print(f"phase 10 lut_chain P3 {form} ns per dependent lookup: "
               + ", ".join(f"{w} warps/SM {ns:.3f}" for w, ns in by_w.items()))
@@ -1428,9 +1433,19 @@ def phase_probes(torch, dev) -> list:
               + f"; {r['ms']:.4f} ms for {latency.INNER} steps on {res['latency']['n']} "
               f"elements, plain {r['plain_ms']:.3f} ms")
     mma = res["mma"]
-    for name in ("wide", "chain"):
-        print(f"phase 10 lut_{name}_mma, {mma['n']} elements: {mma[name]['ms']:.4f} ms "
-              f"({mma[name]['ns_per_lookup']:.5f} ns/lookup), plain {mma[name]['plain_ms']:.3f} ms")
+    for mode, r in mma["wide"]["modes"].items():
+        print(f"phase 10 lut_wide_mma {mode}, {mma['n']} elements x {lut.R_WIDE} rounds: "
+              f"{r['ms']:.4f} ms ({r['ns_per_lookup']:.5f} ns/lookup); {r['registers']} "
+              f"registers, {r['blocks_per_sm']} blocks of {r['block']} an SM "
+              f"({r['threads_per_sm']} threads)"
+              + (f"; again after the others {r['again_ms']:.4f} ms" if "again_ms" in r else ""))
+    print(f"phase 10 lut_wide_mma: {mma_lut.NEW_MODE} {mma['wide']['ms']:.4f} ms, was "
+          f"({mma_lut.OLD_MODE}) {mma['wide']['was_ms']:.4f} ms; plain "
+          f"{mma['wide']['plain_ms']:.3f} ms ({mma_lut.OLD_MODE}'s "
+          f"{mma['wide']['was_plain_ms']:.3f})")
+    print(f"phase 10 lut_chain_mma, {mma['n']} elements: {mma['chain']['ms']:.4f} ms "
+          f"({mma['chain']['ns_per_lookup']:.5f} ns/lookup), plain "
+          f"{mma['chain']['plain_ms']:.3f} ms")
     pk = res["pack"]
     print(f"phase 10 pack_ablate, {pk['n']} symbols, one thread a chunk (32 symbols but "
           f"'thread 4'), full one block a tile ({pk['n_tiles']} tiles): "
@@ -1533,10 +1548,13 @@ def phase_probes(torch, dev) -> list:
          "ns_per_dependent_lookup": res["lut"]["sweep"]},
         {"name": "lut_wide", "route": "cuda", "source": "tpu_huffman_torch/csrc/probe_lut.cu",
          "replaces": "scripts/prof/prof_mxu_lut.py:101",
-         "launches": launched["lut_wide"], "ms": wide["smem"]["ms"],
-         "plain_ms": wide["smem"]["plain_ms"], "library_ms": take_wide_ms,
+         "launches": launched["lut_wide"] + launched["lut_wide_word"],
+         "word_launches": launched["lut_wide_word"], "ms": wide["word"]["ms"],
+         "was_ms": wide["smem"]["ms"], "was": "smem form",
+         "plain_ms": wide["word"]["plain_ms"], "library_ms": take_wide_ms,
          "library": f"{lut.R_WIDE} torch.take of the packed (pattern, length) entry",
-         "timed": f"P6 (smem) at {n} elements x {lut.R_WIDE} rounds",
+         "timed": f"P6 (word form, one 32-bit marker-bit word a lookup) at {n} elements x "
+                  f"{lut.R_WIDE} rounds",
          "work": (8 * n + 2048, n * lut.R_WIDE, n * lut.R_WIDE),
          "forms_ms": {f: r["ms"] for f, r in wide.items()}},
         {"name": "lut_wide_mma", "route": "cuda",
@@ -1544,9 +1562,15 @@ def phase_probes(torch, dev) -> list:
          "replaces": "scripts/prof/prof_mxu_lut.py:152",
          "also_replaces": "scripts/prof/prof_kernel_lut.py:37 (k_onehot, as lut_chain_mma)",
          "launches": launched["lut_wide_mma"] + launched["lut_chain_mma"],
-         "ms": mma["wide"]["ms"], "plain_ms": mma["wide"]["plain_ms"], "library_ms": onehot_ms,
+         "ms": mma["wide"]["ms"], "was_ms": mma["wide"]["was_ms"],
+         "was": f"{mma_lut.OLD_MODE} mode", "plain_ms": mma["wide"]["plain_ms"],
+         "library_ms": onehot_ms,
          "library": f"{lut.R_WIDE} x torch.matmul(F.one_hot(idx, 256).bfloat16(), table)",
-         "timed": f"P6 at {mma['n']} elements x {lut.R_WIDE} rounds",
+         "timed": f"P6, mode {mma_lut.NEW_MODE}, at {mma['n']} elements x {lut.R_WIDE} rounds",
+         "modes_ms": {m: r["ms"] for m, r in mma["wide"]["modes"].items()},
+         "modes_shape": {m: {k: r[k] for k in ("registers", "block", "blocks_per_sm",
+                                               "threads_per_sm")}
+                         for m, r in mma["wide"]["modes"].items()},
          "chain_mma_ms": mma["chain"]["ms"]},
         {"name": "step_chain", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/probe_latency.cu",

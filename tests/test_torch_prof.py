@@ -127,6 +127,131 @@ def test_lut_wide_mma_plain_equals_lut_wide():
     assert torch.equal(got, lut.lut_wide(*args))
 
 
+def _canonical_table(rng):
+    """A random canonical code over 256 symbols with lengths 0-31 (one
+    symbol at 31, one absent at 0, Kraft sum <= 1), patterns left-aligned in
+    32 bits; some lengths carry bits above their low byte (taken & 255)."""
+    lens = np.zeros(256, np.int64)
+    order = rng.permutation(256)
+    budget = 1 << 31  # Kraft sum left, in units of 2^-31
+    for i, sym in enumerate(order[:255]):
+        want = 31 if i == 0 else int(rng.integers(1, 32))
+        if budget == 0:
+            break
+        lens[sym] = max(want, 31 - (int(budget).bit_length() - 1))
+        budget -= 1 << (31 - int(lens[sym]))
+    p32 = np.zeros(256, np.uint32)
+    code, prev = 0, 0
+    for sym in sorted(np.nonzero(lens)[0], key=lambda s: (lens[s], s)):
+        code <<= int(lens[sym]) - prev
+        prev = int(lens[sym])
+        p32[sym] = code << (32 - prev)
+        code += 1
+    high = rng.integers(0, 4, size=256) * 256 * (rng.random(256) < 0.1)
+    return p32, lens, (lens + high).astype(np.int32)
+
+
+def test_word_table_round_trips():
+    """P6's table and 200 seeded random canonical tables: word_table, then
+    its plain decode, gives back (p32, lens & 255)."""
+    p32_np, len_np, _ = lut.p6_inputs(g=1)
+    cases = [(p32_np, len_np.astype(np.int64), len_np)]
+    rng = np.random.default_rng(13)
+    cases += [_canonical_table(rng) for _ in range(200)]
+    assert any(0 in c[1] for c in cases[1:]) and all(31 in c[1] for c in cases[1:])
+    for p32, lens, lens_arg in cases:
+        words = lut.word_table(_t(p32.view(np.int32)), _t(lens_arg))
+        got_p, got_l = lut.word_decode(words)
+        assert np.array_equal(got_p.numpy().view(np.uint32), p32)
+        assert np.array_equal(got_l.numpy(), lens)
+
+
+@pytest.mark.parametrize("entry,p,length,what", [
+    (5, 0, 32, "length 32 > 31"),
+    (9, 0x80000001, 12, "bit below its length"),
+    (0, 1, 0, "bit below its length"),
+])
+def test_word_table_raises_on_what_it_cannot_encode(entry, p, length, what):
+    p32_np, len_np, _ = lut.p6_inputs(g=1)
+    p32, lens = p32_np.copy(), len_np.copy()
+    p32[entry], lens[entry] = p, length
+    with pytest.raises(ValueError, match=f"entry {entry}: .*{what}"):
+        lut.word_table(_t(p32.view(np.int32)), _t(lens))
+
+
+def test_lut_wide_word_plain_equals_p6_truth():
+    """The word form's plain version decodes the word table with torch ops:
+    at the script's seed it gives prof_mxu_lut.py's host truth."""
+    p32_np, len_np, x = lut.p6_inputs(g=32)
+    words = lut.word_table(_t(p32_np.view(np.int32)), _t(len_np))
+    got = lut.lut_wide_word(_t(x), words, lut.R_WIDE)
+    assert np.array_equal(got.numpy(), _p6_truth(p32_np, len_np, x))
+    assert torch.equal(got, lut.lut_wide_word_plain(_t(x), words, lut.R_WIDE))
+
+
+@pytest.mark.parametrize("mode", [m for m in mma_lut.WIDE_MODES if m not in mma_lut.SPLIT_MODES])
+@pytest.mark.parametrize("rounds", [lut.R_WIDE, 5])
+def test_lut_wide_mma_modes_equal_lut_wide(mode, rounds):
+    """Every lookup mode's plain version (for the new modes, their
+    branch-free byte_perm epilogue) against lut_wide and the float32
+    one-hot product."""
+    p32_np, len_np, x = lut.p6_inputs(g=4)
+    args = (_t(x), _t(p32_np.view(np.int32)), _t(len_np), rounds)
+    got = mma_lut.lut_wide_mma(*args, mode=mode)
+    assert torch.equal(got, lut.lut_wide(*args))
+    assert torch.equal(got, mma_lut.lut_wide_mma_plain(*args))
+    assert torch.equal(mma_lut.lut_wide_mma_bytes_plain(*args), got)
+
+
+def _sync_epilogue_emulated(x, p32, lens, rounds):
+    """The split mode mma_only, thread by thread as mma_lut_kernel runs it:
+    a one-hot row with column (x0 + r) & 15 hot in all 16 k-steps, times the
+    table in float32; threads t = 0, 1 OR their shifted columns into a
+    32-bit pattern, t = 2 sums column 4; the four combine at the end."""
+    tab = mma_lut.wide_table(_t(p32.view(np.int32)), _t(len_np_of(lens))).numpy()
+    flat = x.reshape(-1).astype(np.int64)
+    accp = np.zeros((2, flat.size), np.uint64)
+    accl = np.zeros(flat.size, np.uint64)
+    for r in range(rounds):
+        a = np.zeros((flat.size, 256), np.float32)
+        c = (flat + r) & 15
+        for j in range(16):
+            a[np.arange(flat.size), 16 * j + c] = 1.0
+        cols = (a @ tab).astype(np.uint64)
+        accp[0] ^= ((cols[:, 0] << 24) | (cols[:, 1] << 16)) & 0xFFFFFFFF
+        accp[1] ^= ((cols[:, 2] << 8) | cols[:, 3]) & 0xFFFFFFFF
+        accl = (accl + cols[:, 4]) & 0xFFFFFFFF
+    out = (accp[0] ^ accp[1] ^ accl).astype(np.uint32)
+    return out.view(np.int32).reshape(x.shape)
+
+
+def len_np_of(lens):
+    return np.ascontiguousarray(lens, dtype=np.int32)
+
+
+@pytest.mark.parametrize("rounds", [lut.R_WIDE // 4, 7])
+def test_split_plain_versions(rounds):
+    """The split modes' plain versions: mma_only against the old kernel's
+    epilogue emulated thread by thread, build_only zeros."""
+    p32_np, len_np, x = lut.p6_inputs(g=1)
+    x = x[:, :2]
+    args = (_t(x), _t(p32_np.view(np.int32)), _t(len_np), rounds)
+    got = mma_lut.lut_wide_mma(*args, mode="mma_only")
+    assert np.array_equal(got.numpy(), _sync_epilogue_emulated(x, p32_np, len_np, rounds))
+    assert torch.equal(mma_lut.lut_wide_mma(*args, mode="build_only"), torch.zeros_like(got))
+
+
+def test_new_wrappers_reject_bad_arguments():
+    x = torch.zeros(8, dtype=torch.int32)
+    table = torch.zeros(256, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        mma_lut.lut_wide_mma(x, table, table, 1, mode="hmma")
+    with pytest.raises(ValueError):
+        lut.lut_wide_word(x, torch.zeros(128, dtype=torch.int32), 1)
+    with pytest.raises(ValueError):
+        lut.lut_wide_word(x, torch.zeros(256, dtype=torch.int64), 1)
+
+
 @pytest.mark.parametrize("table_kind", ["P1", "P3"])
 def test_lut_chain_mma_plain_equals_lut_chain(table_kind):
     if table_kind == "P1":

@@ -79,8 +79,15 @@ SIGNATURES = {
     ),
     # device, x0, n, p32, lens, rounds, form, block, grid, out, stream
     "thc_probe_lut_wide": (_I32, _P, _I64, _P, _P, _I32, _I32, _I32, _I32, _P, _P),
-    # device, x, n, tab, rounds, mode, block, grid, out, stream
+    # device, x0, n, words, rounds, block, grid, out, stream
+    "thc_probe_lut_word": (_I32, _P, _I64, _P, _I32, _I32, _I32, _P, _P),
+    # device, x, n, tab, rounds, mode, block, grid (<= 0: fill the card
+    # once), out, stream
     "thc_probe_mma_lut": (_I32, _P, _I64, _P, _I32, _I32, _I32, _I32, _P, _P),
+    # device, mode, block -> blocks an SM holds
+    "thc_probe_mma_occupancy": (_I32, _I32, _I32),
+    # device, mode -> registers a thread
+    "thc_probe_mma_registers": (_I32, _I32),
     # device, x, n, lut, steps, kind, form, block, grid, out, stream
     "thc_probe_step_chain": (_I32, _P, _I64, _P, _I32, _I32, _I32, _I32, _I32, _P, _P),
     # device, syms, n, chunk, patterns, lengths, chunk_offs (tile offsets

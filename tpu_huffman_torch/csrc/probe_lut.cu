@@ -21,11 +21,21 @@
 //             select tree, tpu_huffman/ops/pallas_encode.py:_make_byte_lut);
 //   packed    (lut_wide only) pattern and length as one 64-bit shared
 //             memory entry, one load a lookup: the counterpart of P6's
-//             three gathers.
+//             three gathers;
+//   word      (lut_wide only, its own kernel lut_word_kernel) the entry as
+//             one 32-bit word, e = pattern | 1 << (31 - length) (a
+//             left-aligned pattern of length <= 31 has its low 32 - length
+//             bits zero), one copy per bank column as smem_rep: one
+//             conflict-free 4-byte load a lookup, whatever the indexes.
 //
 // Bound: at the scripts' round counts, bytes (each element read and
 // written once); per lookup, the latency of the dependent load (lut_chain)
-// or the load throughput of the form (lut_wide). The design keeps every
+// or the load throughput of the form (lut_wide): one 4-byte lane load a
+// lookup, 32 a cycle an SM. The word form reaches it only with few
+// instructions a lookup: two for the address, the load, two for the
+// marker bit (lsb = e & -e), one LOP3 for the pattern (e ^ lsb), one
+// quarter-rate FLO for the length and one add, about 8 at 128 a cycle an
+// SM, which caps it near 16 lookups a cycle, half the bound. The design keeps every
 // round dependent on the last (lut_chain) and the table's placement a
 // template parameter, so that each form compiles to its own load
 // instruction and nothing else differs. A block-uniform grid-stride loop
@@ -284,6 +294,54 @@ __global__ void lut_wide_kernel(const int* __restrict__ x0, const unsigned* __re
   }
 }
 
+// lut_wide on the word table: 256 marker-bit words (w = p | 1 << (31 - l)),
+// copy c of the 256 in bank column c (word idx * 32 + c, 32 KB). Lane c
+// reads copy c, so a warp's 32 loads hit 32 banks whatever their indexes:
+// one wavefront a lookup. The copies start at a 32 KB boundary of the
+// shared window (kWordSmem bytes a block leave room for the padding), so
+// the address of round r, ((x0 << 7) + (r << 7)) & 0x7F80 | base | lane << 2,
+// is an add and one LOP3: with the base anywhere else its add is a third
+// instruction. lsb = w & -w is the marker; w ^ lsb the pattern; the length
+// is 31 - FLO(lsb), bfind.shiftamt in one instruction.
+constexpr int kWordTable = 256 * 32 * 4;
+constexpr int kWordSmem = 2 * kWordTable;
+
+__device__ __forceinline__ unsigned shiftamt(unsigned v) {
+  unsigned d;
+  asm("bfind.shiftamt.u32 %0, %1;" : "=r"(d) : "r"(v));
+  return d;
+}
+
+__device__ __forceinline__ unsigned ld_shared(unsigned addr) {
+  unsigned v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+__global__ void lut_word_kernel(const int* __restrict__ x0, const unsigned* __restrict__ words,
+                                int rounds, int* __restrict__ out, long long n) {
+  extern __shared__ unsigned smem[];
+  const unsigned s0 = (unsigned)__cvta_generic_to_shared(smem);
+  const unsigned pad = (0u - s0) & (unsigned)(kWordTable - 1);
+  unsigned* copies = smem + pad / 4;
+  for (int k = threadIdx.x; k < 256 * 32; k += blockDim.x) copies[k] = words[k >> 5];
+  __syncthreads();
+  const unsigned base = (s0 + pad) | ((threadIdx.x & 31u) << 2);
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const unsigned b7 = (unsigned)x0[i] << 7;
+    unsigned accp = 0u, accl = 0u;
+#pragma unroll 16
+    for (int r = 0; r < rounds; ++r) {
+      const unsigned w = ld_shared(((b7 + ((unsigned)r << 7)) & 0x7F80u) | base);
+      const unsigned lsb = w & (0u - w);
+      accp ^= w ^ lsb;
+      accl += shiftamt(lsb);
+    }
+    out[i] = (int)(accp ^ accl);
+  }
+}
+
 template <typename Table, typename Entry, bool Acc>
 cudaError_t launch_chain(const void* x, long long n, const void* table, int rounds, int block,
                          int grid, void* out, cudaStream_t stream) {
@@ -352,6 +410,22 @@ int thc_probe_lut_wide(int device, const void* x0, long long n, const void* p32,
     case kPacked: return (int)wide_form<kPacked>(x0, n, p32, lens, rounds, block, grid, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// lut_wide's word form: words, 256 marker-bit entries (prof/lut.py:
+// word_table). block: a multiple of 32; a block takes 64 KB of shared
+// memory (32 KB of copies at a 32 KB boundary), so blocks of 1024 threads,
+// two an SM, fill it with 2048.
+int thc_probe_lut_word(int device, const void* x0, long long n, const void* words, int rounds,
+                       int block, int grid, void* out, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(lut_word_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kWordSmem);
+  if (err != cudaSuccess) return (int)err;
+  lut_word_kernel<<<grid, block, kWordSmem, (cudaStream_t)stream>>>(
+      (const int*)x0, (const unsigned*)words, rounds, (int*)out, n);
+  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -16,8 +16,10 @@ of the Pallas lookup probes:
 column), ``ldg`` (global, through L1), ``l2`` (global, L2 only), ``shfl``
 (the warp's registers, read with ``__shfl_sync``), and for
 :func:`lut_wide` ``packed`` (pattern and length as one 64-bit shared
-memory entry). Every form computes the same function; the plain version is
-one function whatever the form.
+memory entry) and ``word`` (pattern and length as one 32-bit marker-bit
+word, :func:`word_table`, a copy per bank column: one conflict-free load a
+lookup; its own kernel, :func:`lut_wide_word`). Every form computes the
+same function; the plain version is one function whatever the form.
 
 ``python -m tpu_huffman_torch.prof.lut`` checks every form on the card
 against the plain version at the scripts' shapes, prints ns per lookup at
@@ -52,13 +54,16 @@ from . import (
 )
 
 FORMS = ("smem", "smem_rep", "ldg", "l2", "shfl")
-WIDE_FORMS = FORMS + ("packed",)
+WIDE_FORMS = FORMS + ("packed", "word")
 _FORM_ID = {"smem": 0, "smem_rep": 1, "ldg": 2, "l2": 3, "shfl": 4, "packed": 5}
 THREADS = 256
+# the word form's blocks: a block takes 64 KB of shared memory (its 32 KB
+# of copies start at a 32 KB boundary), so two of 1024 threads fill an SM
+WORD_THREADS = 1024
 R_CHAIN = 16  # P1, P2, P3's rounds
 R_WIDE = 64  # P6's rounds
 SWEEP_ROUNDS = (256, 2048)  # the two chain lengths of the occupancy sweep
-launches = {"lut_chain": 0, "lut_wide": 0}
+launches = {"lut_chain": 0, "lut_wide": 0, "lut_wide_word": 0}
 
 
 # ---- the scripts' inputs, from their seeds in their draw order -----------
@@ -169,6 +174,8 @@ def lut_wide(x0: torch.Tensor, p32: torch.Tensor, lens: torch.Tensor, rounds: in
         raise ValueError(f"form must be one of {WIDE_FORMS}")
     if p32.device != x0.device or lens.device != x0.device:
         raise ValueError("x0, p32 and lens are on different devices")
+    if form == "word":
+        return lut_wide_word(x0, word_table(p32, lens), rounds)
     if not is_cuda(x0):
         return lut_wide_plain(x0, p32, lens, rounds)
     p32, lens = p32.contiguous(), lens.contiguous()
@@ -199,6 +206,71 @@ def lut_wide_plain(x0: torch.Tensor, p32: torch.Tensor, lens: torch.Tensor,
     return i32((accp ^ accl) & MASK32)
 
 
+# ---- lut_wide's word form --------------------------------------------------
+
+def word_table(p32: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
+    """The 256 (pattern, length) entries as int32 marker-bit words, ``w =
+    p | 1 << (31 - l)`` with l = lens & 255: a left-aligned pattern of l <=
+    31 bits has its low 32 - l bits zero, so the lowest set bit marks the
+    length and the bits above it are the pattern (l = 0, p = 0 is 1 << 31).
+    Raises ValueError naming the first entry with l > 31 or a pattern bit
+    below its length."""
+    if p32.dtype != torch.int32 or lens.dtype != torch.int32 or p32.shape != (256,) \
+            or lens.shape != (256,):
+        raise ValueError("p32 and lens must be int32[256]")
+    p = u32(p32).cpu()
+    ln = lens.to(torch.int64).cpu() & 255
+    long_ = torch.nonzero(ln > 31)
+    if long_.numel():
+        i = int(long_[0])
+        raise ValueError(f"entry {i}: length {int(ln[i])} > 31 has no marker-bit word")
+    stray = torch.nonzero(p & ((1 << (32 - ln)) - 1))
+    if stray.numel():
+        i = int(stray[0])
+        raise ValueError(f"entry {i}: pattern {int(p[i]):#010x} has a bit below its length "
+                         f"{int(ln[i])}")
+    return i32(p | (1 << (31 - ln))).to(p32.device)
+
+
+def word_decode(words: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(p32, lens) of a :func:`word_table`, by torch ops: the marker is
+    ``w & -w``, the pattern ``w ^ marker``, the length 31 - log2(marker)."""
+    w = u32(words)
+    lsb = w & -w
+    pos = torch.frexp(lsb.to(torch.float64))[1].to(torch.int64) - 1
+    return i32(w ^ lsb), (31 - pos).to(torch.int32)
+
+
+def lut_wide_word(x0: torch.Tensor, words: torch.Tensor, rounds: int) -> torch.Tensor:
+    """:func:`lut_wide` on a :func:`word_table` (int32[256]), one 32-bit
+    load a lookup; the kernel of ``form="word"``, on a table built once."""
+    _check_x(x0, "x0")
+    if words.dtype != torch.int32 or words.shape != (256,):
+        raise ValueError("words must be int32[256]")
+    if words.device != x0.device:
+        raise ValueError("x0 and words are on different devices")
+    if not is_cuda(x0):
+        return lut_wide_word_plain(x0, words, rounds)
+    words = words.contiguous()
+    out = torch.empty_like(x0)
+    n = x0.numel()
+    err = _build.load().thc_probe_lut_word(
+        x0.device.index, x0.data_ptr(), n, words.data_ptr(), rounds, WORD_THREADS,
+        grid(n, WORD_THREADS, x0.device), out.data_ptr(),
+        torch.cuda.current_stream(x0.device).cuda_stream,
+    )
+    _build.check("thc_probe_lut_word", err)
+    launches["lut_wide_word"] += 1
+    return out
+
+
+def lut_wide_word_plain(x0: torch.Tensor, words: torch.Tensor, rounds: int) -> torch.Tensor:
+    """Plain version of :func:`lut_wide_word`: the words decoded by
+    :func:`word_decode`, then :func:`lut_wide_plain`."""
+    p32, lens = word_decode(words)
+    return lut_wide_plain(x0, p32, lens, rounds)
+
+
 # ---- the probe ----------------------------------------------------------------
 
 def chain_cases(dev: torch.device) -> dict:
@@ -217,6 +289,9 @@ def run(dev: torch.device | None = None) -> dict:
     then time it at FILL_ELEMENTS elements and sweep lut_chain's occupancy.
     Every timed launch (each form at both round counts, each block size of
     the sweep) is also held against the plain version at its own shape.
+
+    The wide forms are timed in one kernel_ms call, ``smem`` (the design
+    before ``word``) first and again last (``again_ms``).
 
     Returns {"chain": {case: {form: {...}}}, "wide": {form: {...}},
     "sweep": {form: {warps: ns per dependent lookup}}, "fill": the timed
@@ -264,23 +339,38 @@ def run(dev: torch.device | None = None) -> dict:
     truth = np.bitwise_xor.reduce(p32_np[idx], axis=0).view(np.int32) ^ len_np[idx].sum(
         axis=0, dtype=np.int32)
     check_equal("lut_wide plain vs prof_mxu_lut.py's truth", plain.cpu(), torch.from_numpy(truth))
+    words = word_table(p32, lens)
+    for got, want_t, what in zip(word_decode(words), (p32, lens), ("patterns", "lengths")):
+        check_equal(f"word_table's {what} decoded", got, want_t)
+    check_equal("lut_wide_word plain", lut_wide_word_plain(x0, words, R_WIDE), plain)
     for form in WIDE_FORMS:
         err["lut_wide"] = max(err["lut_wide"], check_equal(
             f"lut_wide {form}", lut_wide(x0, p32, lens, R_WIDE, form), plain))
     xf = tile(x0, FILL_ELEMENTS)
     res["fill"]["P6"] = (xf, p32, lens)
-    plain_ms = median_ms(functools.partial(lut_wide_plain, xf, p32, lens, R_WIDE))
+    plain_ms = {"word": median_ms(functools.partial(lut_wide_word_plain, xf, words, R_WIDE))}
+    plain_ms.update(dict.fromkeys(
+        WIDE_FORMS[:-1], median_ms(functools.partial(lut_wide_plain, xf, p32, lens, R_WIDE))))
     rounds = (R_WIDE // 4, R_WIDE)
     want = {k: lut_wide_plain(xf, p32, lens, k) for k in rounds}
-    calls = {(form, k): functools.partial(lut_wide, xf, p32, lens, k, form)
-             for form in WIDE_FORMS for k in rounds}
+    want_word = {k: lut_wide_word_plain(xf, words, k) for k in rounds}
+    # the forms in one kernel_ms call, the old design (smem) first and
+    # last: the word form on its table built once, the kernel alone
+    order = ("smem",) + tuple(f for f in WIDE_FORMS if f != "smem")
+    calls = {}
+    for form in order + ("smem",):
+        for k in rounds:
+            label = (form, k) if (form, k) not in calls else (form, k, "again")
+            calls[label] = (functools.partial(lut_wide_word, xf, words, k) if form == "word"
+                            else functools.partial(lut_wide, xf, p32, lens, k, form))
     err["lut_wide"] = max(err["lut_wide"], check_calls(
-        "lut_wide", calls, lambda label: want[label[1]]))
+        "lut_wide", calls, lambda label: (want_word if label[0] == "word" else want)[label[1]]))
     t = kernel_ms(calls)
     for form in WIDE_FORMS:
         lo, hi = t[form, R_WIDE // 4], t[form, R_WIDE]
-        res["wide"][form] = {"ms": hi, "plain_ms": plain_ms,
+        res["wide"][form] = {"ms": hi, "plain_ms": plain_ms[form],
                              "ns_per_lookup": slope_ns(lo, hi, R_WIDE - R_WIDE // 4) / xf.numel()}
+    res["wide"]["smem"]["again_ms"] = t["smem", R_WIDE, "again"]
 
     # ns per dependent lookup: P3's 32-bit table (the decode LUT's entry
     # width), one chain a thread, at 1, 8 and 64 warps an SM; each sweep
@@ -318,7 +408,8 @@ def main() -> None:
                   f"{r['plain_ms']:.3f} ms); equal to plain at the script's shape")
     for form, r in res["wide"].items():
         print(f"lut_wide P6 {form:8s}: {r['ms']:.4f} ms at {FILL_ELEMENTS} elements x {R_WIDE} "
-              f"rounds, {r['ns_per_lookup']:.5f} ns/lookup (plain {r['plain_ms']:.3f} ms)")
+              f"rounds, {r['ns_per_lookup']:.5f} ns/lookup (plain {r['plain_ms']:.3f} ms)"
+              + (f"; again after the others {r['again_ms']:.4f} ms" if "again_ms" in r else ""))
     for form, by_w in res["sweep"].items():
         print(f"lut_chain P3 {form:8s} ns per dependent lookup: "
               + ", ".join(f"{w} warps/SM {ns:.2f}" for w, ns in by_w.items()))

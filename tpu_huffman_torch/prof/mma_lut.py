@@ -8,15 +8,37 @@ the counterpart of the MXU probes: P6 ``scripts/prof/prof_mxu_lut.py``'s
 * :func:`lut_chain_mma` computes :func:`.lut.lut_chain` (every column the
   table's low byte).
 
-The kernel multiplies a bf16 one-hot of 16 indexes by the table with
-``mma.sync.m16n8k16`` and f32 accumulation; integers <= 255 are exact, so
-the output equals the lookup kernels' bit for bit. The plain versions are
-the same product in float32 on whatever device the tensors are on.
+The kernels multiply a bf16 one-hot by the table with f32 accumulation;
+integers <= 255 are exact, so the output equals the lookup kernels' bit
+for bit. The plain versions are the same product in float32 on whatever
+device the tensors are on. :func:`lut_wide_mma`'s ``mode`` picks the
+kernel (``WIDE_MODES``):
 
-``python -m tpu_huffman_torch.prof.mma_lut`` checks both on the card
-against the plain versions and ``lut_wide``/``lut_chain`` at the scripts'
+* ``sync`` — ``mma.sync.m16n8k16``, two tiles a warp, the table's
+  fragments in registers, the one-hot rebuilt a k-step with two predicates
+  and four selects (the yardstick of the new modes; :func:`lut_chain_mma`
+  runs it too);
+* ``mma_only`` and ``build_only`` — ``sync`` split: the mma and the
+  epilogue with no one-hot built a k-step (the round's column hot in every
+  k-step), and the build and the epilogue with no mma (out is 0); each has
+  its own plain version (:func:`split_plain`);
+* ``wgmma`` — ``wgmma.mma_async.m64n8k16`` (sm_90a), 64 lookups a
+  warpgroup a round, the one-hot as A from registers, the table as B in
+  shared memory, a round's 16 k-steps one group while the next round's
+  fragments are built; ``wgmma8`` the same with two groups of 8 a round;
+* ``sync4`` — ``mma.sync`` reworked: four tiles a warp interleaved by
+  k-step, the table's fragments in shared memory.
+
+``wgmma``, ``wgmma8`` and ``sync4`` build the one-hot with one fp16x2
+compare an A register, whose 1.0 (0x3C00) reads as 2^-7 in bf16, and
+share a branch-free epilogue; :func:`lut_wide_mma_bytes_plain` repeats
+their arithmetic. ``NEW_MODE`` is the fastest of the three on the card,
+``sync4`` (PERF.md section 6).
+
+``python -m tpu_huffman_torch.prof.mma_lut`` checks every mode on the card
+against its plain version and ``lut_wide``/``lut_chain`` at the scripts'
 shapes and prints ns per lookup at one wave of the card (2048 threads on
-every SM).
+every SM), with each mode's registers and blocks an SM.
 """
 
 from __future__ import annotations
@@ -47,6 +69,14 @@ from . import lut as _lut
 
 THREADS = 256
 PLAIN_ROWS = 1 << 19  # one-hot rows the plain version builds at a time
+# lut_wide_mma's kernels: mode -> (C mode id, block; grid 0 fills the card
+# once, at the blocks an SM holds)
+WIDE_MODES = {"sync": (0, THREADS), "mma_only": (3, THREADS), "build_only": (4, THREADS),
+              "wgmma": (5, 128), "wgmma8": (6, 128), "sync4": (7, THREADS)}
+OLD_MODE = "sync"
+NEW_MODE = "sync4"
+SPLIT_MODES = ("mma_only", "build_only")
+MAGIC_BITS = 0x4B400000  # float bits of 1.5 * 2^23, the new modes' accumulator start
 launches = {"lut_wide_mma": 0, "lut_chain_mma": 0}
 
 
@@ -64,13 +94,16 @@ def chain_table(table: torch.Tensor) -> torch.Tensor:
     return (table.to(torch.int64) & 255).to(torch.float32)[:, None].expand(256, 8).contiguous()
 
 
-def _launch(x: torch.Tensor, tab: torch.Tensor, rounds: int, mode: int, name: str):
-    """The kernel alone, on a (256, 8) bf16 table already on the card."""
+def _launch(x: torch.Tensor, tab: torch.Tensor, rounds: int, mode: int, name: str,
+            block: int = THREADS):
+    """The kernel alone, on a (256, 8) bf16 table already on the card.
+    Modes 0-4 get one thread an element, capped at a wave; the others fill
+    the card once (grid 0)."""
     out = torch.empty_like(x)
     n = x.numel()
     err = _build.load().thc_probe_mma_lut(
-        x.device.index, x.data_ptr(), n, tab.data_ptr(), rounds, mode, THREADS,
-        grid(n, THREADS, x.device), out.data_ptr(),
+        x.device.index, x.data_ptr(), n, tab.data_ptr(), rounds, mode, block,
+        grid(n, block, x.device) if mode <= 4 else 0, out.data_ptr(),
         torch.cuda.current_stream(x.device).cuda_stream,
     )
     _build.check("thc_probe_mma_lut", err)
@@ -78,13 +111,31 @@ def _launch(x: torch.Tensor, tab: torch.Tensor, rounds: int, mode: int, name: st
     return out
 
 
-def _onehot_rows(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
-    """onehot(idx) @ tab in float32, PLAIN_ROWS rows at a time: (n, 8)
-    exact integers."""
+def kernel_shape(mode: str, dev: torch.device) -> dict:
+    """A wide mode's registers a thread and blocks an SM (the CUDA
+    occupancy calculator on ptxas's allocation): {"registers", "block",
+    "blocks_per_sm", "threads_per_sm"}."""
+    mid, block = WIDE_MODES[mode]
+    lib = _build.load()
+    regs = lib.thc_probe_mma_registers(dev.index or 0, mid)
+    per_sm = lib.thc_probe_mma_occupancy(dev.index or 0, mid, block)
+    if regs < 0 or per_sm < 0:
+        raise RuntimeError(f"{mode}: CUDA error {-min(regs, per_sm)} reading the kernel's shape")
+    return {"registers": regs, "block": block, "blocks_per_sm": per_sm,
+            "threads_per_sm": per_sm * block}
+
+
+def _onehot_product(idx: torch.Tensor, tab: torch.Tensor, hot: float = 1.0) -> torch.Tensor:
+    """(hot * onehot(idx)) @ tab in float32, PLAIN_ROWS rows at a time:
+    (n, 8), exact for a power-of-two hot."""
     flat = idx.reshape(-1)
-    parts = [F.one_hot(flat[i:i + PLAIN_ROWS], 256).to(torch.float32) @ tab
-             for i in range(0, flat.numel(), PLAIN_ROWS)]
-    return torch.cat(parts).to(torch.int64)
+    return torch.cat([(F.one_hot(flat[i:i + PLAIN_ROWS], 256).to(torch.float32) * hot) @ tab
+                      for i in range(0, flat.numel(), PLAIN_ROWS)])
+
+
+def _onehot_rows(idx: torch.Tensor, tab: torch.Tensor) -> torch.Tensor:
+    """onehot(idx) @ tab in float32: (n, 8) exact integers."""
+    return _onehot_product(idx, tab).to(torch.int64)
 
 
 def _check(x: torch.Tensor, *tables: torch.Tensor) -> None:
@@ -94,13 +145,26 @@ def _check(x: torch.Tensor, *tables: torch.Tensor) -> None:
         raise ValueError("tables must be 256 entries on x's device")
 
 
-def lut_wide_mma(x0: torch.Tensor, p32: torch.Tensor, lens: torch.Tensor,
-                 rounds: int) -> torch.Tensor:
-    """:func:`.lut.lut_wide` by one-hot products on the tensor cores."""
+def lut_wide_mma(x0: torch.Tensor, p32: torch.Tensor, lens: torch.Tensor, rounds: int,
+                 mode: str = NEW_MODE) -> torch.Tensor:
+    """:func:`.lut.lut_wide` by one-hot products on the tensor cores, by
+    the kernel ``mode`` (``WIDE_MODES``; the split modes compute
+    :func:`split_plain`)."""
     _check(x0, p32, lens)
+    if mode not in WIDE_MODES:
+        raise ValueError(f"mode must be one of {tuple(WIDE_MODES)}")
     if not is_cuda(x0):
-        return lut_wide_mma_plain(x0, p32, lens, rounds)
-    return _launch(x0, wide_table(p32, lens).to(torch.bfloat16), rounds, 0, "lut_wide_mma")
+        if mode in SPLIT_MODES:
+            return split_plain(x0, p32, lens, rounds, mode)
+        if mode == OLD_MODE:
+            return lut_wide_mma_plain(x0, p32, lens, rounds)
+        return lut_wide_mma_bytes_plain(x0, p32, lens, rounds)
+    return _launch_wide(x0, wide_table(p32, lens).to(torch.bfloat16), rounds, mode)
+
+
+def _launch_wide(x0: torch.Tensor, tab: torch.Tensor, rounds: int, mode: str) -> torch.Tensor:
+    mid, block = WIDE_MODES[mode]
+    return _launch(x0, tab, rounds, mid, "lut_wide_mma", block)
 
 
 def lut_wide_mma_plain(x0: torch.Tensor, p32: torch.Tensor, lens: torch.Tensor,
@@ -115,6 +179,66 @@ def lut_wide_mma_plain(x0: torch.Tensor, p32: torch.Tensor, lens: torch.Tensor,
         c = _onehot_rows((base + r) & 255, tab)
         accp ^= (c[:, 0] << 24) | (c[:, 1] << 16) | (c[:, 2] << 8) | c[:, 3]
         accl += c[:, 4]
+    return i32((accp ^ accl) & MASK32).reshape(x0.shape)
+
+
+def _byte_perm(x: torch.Tensor, y: torch.Tensor, sel: int) -> torch.Tensor:
+    """CUDA's __byte_perm on int64 values < 2^32: byte i of the result is
+    byte (sel >> 4i) & 7 of y:x."""
+    both = x | (y << 32)
+    out = torch.zeros_like(x)
+    for i in range(4):
+        out |= ((both >> (8 * ((sel >> (4 * i)) & 7))) & 255) << (8 * i)
+    return out
+
+
+SELECTORS = (0x0411, 0x1104, 0x1111, 0x1111)  # the epilogue's byte_perm of thread t
+HOT = 2.0 ** -7  # the new modes' one-hot entry: set.eq.f16x2's fp16 1.0 (0x3C00) read as bf16
+
+
+def lut_wide_mma_bytes_plain(x0: torch.Tensor, p32: torch.Tensor, lens: torch.Tensor,
+                             rounds: int) -> torch.Tensor:
+    """Plain version of the modes ``wgmma``, ``wgmma8`` and ``sync4``: the
+    float32 product of a one-hot whose hot entry is HOT (fp16 1.0's bits
+    read as bf16), then their branch-free epilogue. Each column c becomes
+    128 c + 1.5 * 2^23, whose float bits are MAGIC_BITS + the entry;
+    thread t of a row's four XORs byte_perm(C[2t], C[2t + 1],
+    SELECTORS[t]) into its pattern and adds C[2t]'s bits; at the end t = 2
+    keeps its sum less rounds * MAGIC_BITS, the others their pattern, and
+    the four are XORed."""
+    tab = wide_table(p32, lens)
+    base = x0.to(torch.int64).reshape(-1)
+    accp = [torch.zeros_like(base) for _ in range(4)]
+    accl = [torch.zeros_like(base) for _ in range(4)]
+    for r in range(rounds):
+        c = _onehot_product((base + r) & 255, tab, HOT)
+        bits = (c * 128 + 12582912).view(torch.int32).to(torch.int64) & MASK32
+        for t in range(4):
+            accp[t] ^= _byte_perm(bits[:, 2 * t], bits[:, 2 * t + 1], SELECTORS[t])
+            accl[t] = (accl[t] + bits[:, 2 * t]) & MASK32
+    out = (accl[2] - rounds * MAGIC_BITS) & MASK32
+    for t in (0, 1, 3):
+        out ^= accp[t]
+    return i32(out).reshape(x0.shape)
+
+
+def split_plain(x0: torch.Tensor, p32: torch.Tensor, lens: torch.Tensor, rounds: int,
+                mode: str) -> torch.Tensor:
+    """Plain versions of the split modes. ``build_only``: zeros.
+    ``mma_only``: the round's column c = (x0 + r) & 15 is hot in all 16
+    k-steps, so C = SUM_j T[16j + c] (integers up to 16 * 255), through
+    ``sync``'s epilogue in 32 bits: (C0 << 24 | C1 << 16) ^ (C2 << 8 | C3)
+    XORed, C4 summed."""
+    if mode == "build_only":
+        return torch.zeros_like(x0)
+    sums = wide_table(p32, lens).to(torch.int64).reshape(16, 16, 8).sum(0)  # [c, column]
+    base = x0.to(torch.int64).reshape(-1)
+    accp = torch.zeros_like(base)
+    accl = torch.zeros_like(base)
+    for r in range(rounds):
+        s = sums[(base + r) & 15]
+        accp ^= (((s[:, 0] << 24) | (s[:, 1] << 16)) ^ ((s[:, 2] << 8) | s[:, 3])) & MASK32
+        accl += s[:, 4]
     return i32((accp ^ accl) & MASK32).reshape(x0.shape)
 
 
@@ -138,23 +262,47 @@ def lut_chain_mma_plain(x: torch.Tensor, table: torch.Tensor, rounds: int,
     return y.to(torch.int32).reshape(x.shape)
 
 
+def _wide_plain(mode: str):
+    """The plain version of a wide mode, as f(x0, p32, lens, rounds)."""
+    if mode in SPLIT_MODES:
+        return functools.partial(_split, mode)
+    return lut_wide_mma_plain if mode == OLD_MODE else lut_wide_mma_bytes_plain
+
+
+def _split(mode, x0, p32, lens, rounds):
+    return split_plain(x0, p32, lens, rounds, mode)
+
+
 def run(dev: torch.device | None = None) -> dict:
-    """Check both kernels against their plain versions and against
-    lut_wide / lut_chain at P6's and P1's shapes, then time them at one
-    wave of 270,336 elements, each launch timed also held against the
-    plain version there. The timed launches take their bf16 tables built
-    once, so the times are the mma kernel alone. Returns {"wide": {...},
-    "chain": {...}, "n": elements timed, "fill": the timed tensors,
-    "max_abs_err": {kernel: over every comparison}}."""
+    """Check every kernel against its plain version, and the lookups
+    against lut_wide / lut_chain, at P6's and P1's shapes; then time them
+    at one wave of 270,336 elements, each launch timed also held against
+    its plain version there. The timed launches take their bf16 tables
+    built once, so the times are the mma kernel alone. The wide modes are
+    timed in one kernel_ms call, ``sync`` (the design before) first and
+    again last. Returns {"wide": the NEW_MODE's {"ms", "was_ms",
+    "plain_ms", "ns_per_lookup"} and "modes": {mode: {"ms",
+    "ns_per_lookup", "registers", "block", "blocks_per_sm",
+    "threads_per_sm"}}, "chain": {...}, "n": elements timed, "fill": the
+    timed tensors, "max_abs_err": {kernel: over every comparison}}."""
     dev = on_card(dev)
     p32_np, len_np, x_np = _lut.p6_inputs()
     p32 = torch.from_numpy(p32_np.view(np.int32)).to(dev)
     lens = torch.from_numpy(len_np).to(dev)
     x0 = torch.from_numpy(x_np).to(dev)
-    got = lut_wide_mma(x0, p32, lens, _lut.R_WIDE)
-    err = {"lut_wide_mma": max(
-        check_equal("lut_wide_mma vs plain", got, lut_wide_mma_plain(x0, p32, lens, _lut.R_WIDE)),
-        check_equal("lut_wide_mma vs lut_wide", got, _lut.lut_wide(x0, p32, lens, _lut.R_WIDE)))}
+    want = _lut.lut_wide(x0, p32, lens, _lut.R_WIDE)
+    check_equal("lut_wide_mma plain vs lut_wide", lut_wide_mma_plain(x0, p32, lens, _lut.R_WIDE),
+                want)
+    check_equal("the new modes' plain vs lut_wide",
+                lut_wide_mma_bytes_plain(x0, p32, lens, _lut.R_WIDE), want)
+    err = {"lut_wide_mma": 0}
+    for mode in WIDE_MODES:
+        got = lut_wide_mma(x0, p32, lens, _lut.R_WIDE, mode)
+        err["lut_wide_mma"] = max(err["lut_wide_mma"], check_equal(
+            f"lut_wide_mma {mode} vs plain", got,
+            _wide_plain(mode)(x0, p32, lens, _lut.R_WIDE)))
+        if mode not in SPLIT_MODES:
+            check_equal(f"lut_wide_mma {mode} vs lut_wide", got, want)
     table_np, x1_np = _lut.p1_inputs()
     table = torch.from_numpy(table_np).to(dev)
     x1 = torch.from_numpy(x1_np).to(dev)
@@ -172,22 +320,52 @@ def run(dev: torch.device | None = None) -> dict:
     res = {"n": n, "fill": {"P6": (xw, p32, lens), "P1": (xc, table)}}
     tab_w = wide_table(p32, lens).to(torch.bfloat16)
     tab_c = chain_table(table).to(torch.bfloat16)
-    kernels = {"wide": lambda k: _launch(xw, tab_w, k, 0, "lut_wide_mma"),
-               "chain": lambda k: _launch(xc, tab_c, k, 2, "lut_chain_mma")}
-    plains = {"wide": lambda k: lut_wide_mma_plain(xw, p32, lens, k),
-              "chain": lambda k: lut_chain_mma_plain(xc, table, k, True)}
     # (the script's rounds, another round count for the slope)
-    rounds = {"wide": (_lut.R_WIDE, _lut.R_WIDE // 4), "chain": (_lut.R_CHAIN, 4 * _lut.R_CHAIN)}
-    calls = {(name, k): functools.partial(kernels[name], k)
-             for name in kernels for k in rounds[name]}
-    for name in kernels:
+    rw = (_lut.R_WIDE, _lut.R_WIDE // 4)
+    rc = (_lut.R_CHAIN, 4 * _lut.R_CHAIN)
+    order = (OLD_MODE,) + tuple(m for m in WIDE_MODES if m != OLD_MODE) + (OLD_MODE,)
+    calls = {}
+    for mode in order:
+        for k in rw:
+            label = ("wide", mode, k) if ("wide", mode, k) not in calls else ("wide", mode, k, 2)
+            calls[label] = functools.partial(_launch_wide, xw, tab_w, k, mode)
+    for k in rc:
+        calls["chain", k] = functools.partial(_launch, xc, tab_c, k, 2, "lut_chain_mma")
+    plains = {}
+
+    def want_of(label):
+        if label[0] == "chain":
+            key = ("chain", label[1])
+            fn = functools.partial(lut_chain_mma_plain, xc, table, label[1], True)
+        else:
+            kind = _wide_plain(label[1])
+            key = (kind, label[2])
+            fn = functools.partial(kind, xw, p32, lens, label[2])
+        if key not in plains:
+            plains[key] = fn()
+        return plains[key]
+
+    for name in ("wide", "chain"):
         err[f"lut_{name}_mma"] = max(err[f"lut_{name}_mma"], check_calls(
-            f"lut_{name}_mma", {label: fn for label, fn in calls.items() if label[0] == name},
-            lambda label: plains[name](label[1])))
+            f"lut_{name}_mma", {lb: fn for lb, fn in calls.items() if lb[0] == name}, want_of))
+    del plains
     t = kernel_ms(calls)
-    for name, (r, other) in rounds.items():
-        res[name] = {"ms": t[name, r], "plain_ms": median_ms(functools.partial(plains[name], r)),
-                     "ns_per_lookup": slope_ns(t[name, other], t[name, r], r - other) / n}
+    modes = {}
+    for mode in WIDE_MODES:
+        hi, lo = t["wide", mode, rw[0]], t["wide", mode, rw[1]]
+        modes[mode] = {"ms": hi, "ns_per_lookup": slope_ns(lo, hi, rw[0] - rw[1]) / n,
+                       **kernel_shape(mode, dev)}
+    modes[OLD_MODE]["again_ms"] = t["wide", OLD_MODE, rw[0], 2]
+    res["wide"] = {"ms": modes[NEW_MODE]["ms"], "was_ms": modes[OLD_MODE]["ms"],
+                   "ns_per_lookup": modes[NEW_MODE]["ns_per_lookup"], "modes": modes,
+                   "plain_ms": median_ms(functools.partial(
+                       lut_wide_mma_bytes_plain, xw, p32, lens, rw[0])),
+                   "was_plain_ms": median_ms(functools.partial(
+                       lut_wide_mma_plain, xw, p32, lens, rw[0]))}
+    hi, lo = t["chain", rc[0]], t["chain", rc[1]]
+    res["chain"] = {"ms": hi, "ns_per_lookup": slope_ns(lo, hi, rc[0] - rc[1]) / n,
+                    "plain_ms": median_ms(functools.partial(
+                        lut_chain_mma_plain, xc, table, rc[0], True))}
     res["max_abs_err"] = err
     return res
 
@@ -196,11 +374,20 @@ def main() -> None:
     dev = require_cuda()
     print(card())
     res = run(dev)
-    for name, rounds in (("wide", _lut.R_WIDE), ("chain", _lut.R_CHAIN)):
-        r = res[name]
-        print(f"lut_{name}_mma: {r['ms']:.4f} ms at {res['n']} elements x {rounds} rounds, "
-              f"{r['ns_per_lookup']:.5f} ns/lookup (plain {r['plain_ms']:.3f} ms); equal to "
-              f"lut_{name} and to plain at the script's shape")
+    w = res["wide"]
+    for mode, r in w["modes"].items():
+        print(f"lut_wide_mma {mode:10s}: {r['ms']:.4f} ms at {res['n']} elements x "
+              f"{_lut.R_WIDE} rounds, {r['ns_per_lookup']:.5f} ns/lookup; {r['registers']} "
+              f"registers, {r['blocks_per_sm']} blocks of {r['block']} an SM "
+              f"({r['threads_per_sm']} threads)"
+              + (f"; again after the others {r['again_ms']:.4f} ms" if "again_ms" in r else ""))
+    print(f"lut_wide_mma: {NEW_MODE} {w['ms']:.4f} ms, was ({OLD_MODE}) {w['was_ms']:.4f} ms; "
+          f"plain {w['plain_ms']:.3f} ms ({OLD_MODE}'s {w['was_plain_ms']:.3f}); every mode equal "
+          f"to its plain version, and the lookups to lut_wide, at the script's shape")
+    r = res["chain"]
+    print(f"lut_chain_mma: {r['ms']:.4f} ms at {res['n']} elements x {_lut.R_CHAIN} rounds, "
+          f"{r['ns_per_lookup']:.5f} ns/lookup (plain {r['plain_ms']:.3f} ms); equal to "
+          f"lut_chain and to plain at the script's shape")
 
 
 if __name__ == "__main__":

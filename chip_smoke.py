@@ -119,12 +119,15 @@ Phases (any failure raises and the script exits non-zero):
  10. the profiling probes (tpu_huffman_torch.prof, the counterparts of the
      Pallas probes in scripts/prof/), driven through each module's run()
      with the launch counters reset just before: every form of lut_chain
-     (P1, P2, P3) and lut_wide (P6; its word form, one 32-bit marker-bit
+     (P1, P2, P3; its addr form, the table as next addresses, one
+     conflict-free load a round, timed beside smem, the design before it)
+     and lut_wide (P6; its word form, one 32-bit marker-bit
      word a lookup, timed beside smem, the design before it), every mode
      of lut_wide_mma (the mma.sync kernel it had, that kernel's split, the
      wgmma and reworked mma.sync kernels, each with its registers and
      blocks an SM) and lut_chain_mma against lut_wide / lut_chain, every
-     kind and form of step_chain (P4),
+     kind and form of step_chain (P4; gather's and gather0's lean form,
+     the fewest integer instructions a step, timed beside gather smem),
      every pack_ablate mode (P5; the per-thread loop of the design before
      the tile loop at chunks 32 and 4, and the tile loop, both against
      encode_pack's words), and
@@ -138,7 +141,9 @@ Phases (any failure raises and the script exits non-zero):
      then timed where they fill the card, the dependent-step
      latencies at 1, 8 and 64 warps an SM, and the library yardsticks
      (chained torch.take on P2's and on P3's table; the one-hot
-     torch.matmul); the bounds of lut_chain, lut_wide and step_chain also
+     torch.matmul); the main loop of each chained-lookup kernel in SASS
+     (prof.sass: instructions a load, opcodes); the bounds of lut_chain,
+     lut_wide and step_chain also
      count their shared-memory lookups (32 lanes x 4 B a cycle an SM at
      the card's top SM clock, from nvidia-smi);
  11. the mesh (tpu_huffman_torch.shard, .distributed): MeshCodec on
@@ -1398,7 +1403,7 @@ def phase_probes(torch, dev) -> list:
 
     from tpu_huffman_torch import prof
     from tpu_huffman_torch.ops.bitpack import u32
-    from tpu_huffman_torch.prof import decode_ablate, latency, lut, mma_lut, pack_ablate
+    from tpu_huffman_torch.prof import decode_ablate, latency, lut, mma_lut, pack_ablate, sass
 
     counters = (lut.launches, mma_lut.launches, latency.launches, pack_ablate.launches,
                 decode_ablate.launches)
@@ -1417,7 +1422,11 @@ def phase_probes(torch, dev) -> list:
         print(f"phase 10 lut_chain {case}, {prof.FILL_ELEMENTS} elements x {lut.R_CHAIN} rounds: "
               + ", ".join(f"{f} {r['ms']:.4f} ms ({r['ns_per_lookup']:.5f} ns/lookup)"
                           for f, r in forms.items())
-              + f"; plain {next(iter(forms.values()))['plain_ms']:.4f} ms")
+              + f"; smem again after the others {forms['smem']['again_ms']:.4f} ms; plain "
+              f"{forms['smem']['plain_ms']:.4f} ms")
+    stream = res["lut"]["stream"]
+    print(f"phase 10 lut_chain P2 addr at 0 rounds {stream['addr_0_rounds_ms']:.4f} ms, a copy of "
+          f"the same bytes (clone) {stream['copy_ms']:.4f} ms")
     wide = res["lut"]["wide"]
     print(f"phase 10 lut_wide P6, {prof.FILL_ELEMENTS} elements x {lut.R_WIDE} rounds: "
           + ", ".join(f"{f} {r['ms']:.4f} ms ({r['ns_per_lookup']:.5f} ns/lookup)"
@@ -1427,11 +1436,17 @@ def phase_probes(torch, dev) -> list:
     for form, by_w in res["lut"]["sweep"].items():
         print(f"phase 10 lut_chain P3 {form} ns per dependent lookup: "
               + ", ".join(f"{w} warps/SM {ns:.3f}" for w, ns in by_w.items()))
+    for name, r in sass.loops().items():
+        per = "no LDS loop" if r["per_load"] is None else f"{r['per_load']:.3f} a load"
+        print(f"phase 10 sass {name}: main loop {r['instructions']} instructions, {r['loads']} "
+              f"LDS, other instructions {per}; "
+              + ", ".join(f"{op} {n}" for op, n in r["opcodes"].items()))
     for (kind, form), r in res["latency"]["configs"].items():
         print(f"phase 10 step_chain {kind} {form} ns per dependent step: "
               + ", ".join(f"{w} warps/SM {ns:.3f}" for w, ns in r["sweep"].items())
               + f"; {r['ms']:.4f} ms for {latency.INNER} steps on {res['latency']['n']} "
-              f"elements, plain {r['plain_ms']:.3f} ms")
+              f"elements, plain {r['plain_ms']:.3f} ms"
+              + (f"; again after the others {r['again_ms']:.4f} ms" if "again_ms" in r else ""))
     mma = res["mma"]
     for mode, r in mma["wide"]["modes"].items():
         print(f"phase 10 lut_wide_mma {mode}, {mma['n']} elements x {lut.R_WIDE} rounds: "
@@ -1528,8 +1543,10 @@ def phase_probes(torch, dev) -> list:
           f"({mma['n']} elements)")
 
     n = prof.FILL_ELEMENTS
-    chain_row = res["lut"]["chain"]["P2"]["smem"]
-    lat = res["latency"]["configs"]["gather", "smem"]
+    chain_row = res["lut"]["chain"]["P2"]["addr"]
+    chain_was = res["lut"]["chain"]["P2"]["smem"]
+    lat = res["latency"]["configs"]["gather", "lean"]
+    lat_was = res["latency"]["configs"][latency.OLD]
     n_lat = res["latency"]["n"]
     n_sym = pk["n"]
     rows = [
@@ -1538,10 +1555,12 @@ def phase_probes(torch, dev) -> list:
          "also_replaces": "scripts/prof/prof_kernel_gather2d.py:24, "
                           "scripts/prof/prof_dynamic_gather.py:34, :92",
          "launches": launched["lut_chain"], "ms": chain_row["ms"],
+         "was_ms": chain_was["ms"], "was": "smem form", "was_again_ms": chain_was["again_ms"],
          "plain_ms": chain_row["plain_ms"], "library_ms": take_ms,
          "library": f"{lut.R_CHAIN} chained torch.take",
-         "p3_library_ms": take3_ms,
-         "timed": f"P2's chain (byte table, smem) at {n} elements x {lut.R_CHAIN} rounds",
+         "p3_library_ms": take3_ms, "stream_ms": res["lut"]["stream"],
+         "timed": f"P2's chain (byte table, addr form, blocks of {lut.ADDR_THREADS}) at {n} "
+                  f"elements x {lut.R_CHAIN} rounds",
          "work": (8 * n + 256, n * lut.R_CHAIN, n * lut.R_CHAIN),
          "forms_ms": {c: {f: r["ms"] for f, r in fm.items()}
                       for c, fm in res["lut"]["chain"].items()},
@@ -1575,11 +1594,13 @@ def phase_probes(torch, dev) -> list:
         {"name": "step_chain", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/probe_latency.cu",
          "replaces": "scripts/prof/prof_r3_gather_latency.py:31",
-         "launches": launched["step_chain"], "ms": lat["ms"], "plain_ms": lat["plain_ms"],
-         "library_ms": None,
+         "launches": launched["step_chain"], "ms": lat["ms"], "was_ms": lat_was["ms"],
+         "was": "gather, smem form", "was_again_ms": lat_was["again_ms"],
+         "plain_ms": lat["plain_ms"], "library_ms": None,
          "library": "none: no PyTorch call runs a chain of dependent steps",
-         "timed": f"gather, smem, {latency.INNER} steps on {n_lat} elements (64 warps/SM)",
+         "timed": f"gather, lean, {latency.INNER} steps on {n_lat} elements (64 warps/SM)",
          "work": (8 * n_lat + 4096, n_lat * latency.INNER, n_lat * latency.INNER),
+         "forms_ms": {f"{k} {f}": r["ms"] for (k, f), r in res["latency"]["configs"].items()},
          "ns_per_dependent_step": {f"{k} {f}": r["sweep"]
                                    for (k, f), r in res["latency"]["configs"].items()}},
         {"name": "pack_ablate", "route": "cuda", "source": "tpu_huffman_torch/csrc/probe_pack.cu",
@@ -1619,11 +1640,15 @@ def phase_probes(torch, dev) -> list:
             row["bound_ms"], row["bound_by"] = (
                 (by_bytes, "bytes") if by_bytes >= by_ops
                 else (by_ops, "operations (tensor-core bf16 flops over 989e12)"))
+            # lut_chain_mma: the same one-hot product a lookup, R_CHAIN rounds
+            row["chain_mma_bound_ms"] = max(
+                by_bytes, n_m * lut.R_CHAIN * 2 * 256 * 8 / BF16_FLOPS_PER_S * 1e3)
         else:
             row["bound_ms"], row["bound_by"] = _bound(*row.pop("work"))
-        print(f"phase 10 {row['name']}: {row['ms']:.4f} ms, bound {row['bound_ms']:.6f} ms by "
-              f"{row['bound_by']}, plain {row['plain_ms']:.4f} ms, library {row['library_ms']} "
-              f"({row['timed']})")
+        print(f"phase 10 {row['name']}: {row['ms']:.4f} ms"
+              + (f" (was {row['was_ms']:.4f}, {row['was']})" if "was_ms" in row else "")
+              + f", bound {row['bound_ms']:.6f} ms by {row['bound_by']}, plain "
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']} ({row['timed']})")
     return rows
 
 

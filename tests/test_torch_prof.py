@@ -88,15 +88,41 @@ def test_lut_chain_equals_take_along_axis(layout):
     assert torch.equal(lut.lut_chain(_t(x), _t(table), lut.R_CHAIN), got)
 
 
-def test_lut_chain_32bit_table_equals_numpy_truth():
+@pytest.mark.parametrize("form", lut.FORMS)
+def test_lut_chain_32bit_table_equals_numpy_truth(form):
     """P3: prof_dynamic_gather.py's own check (:49-52), a table of values up
     to 2^31, at a reduced G."""
     table, x = lut.p3_inputs(g=4)
     want = x
     for _ in range(lut.R_CHAIN):
         want = table[want] & 255
-    got = lut.lut_chain(_t(x), _t(table), lut.R_CHAIN, form="shfl")
+    got = lut.lut_chain(_t(x), _t(table), lut.R_CHAIN, form=form)
     assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("case", ["P1", "P2", "P3"])
+def test_addr_table_holds_next_offsets(case):
+    """The addr form's entries as its kernel stages them: entry idx of copy
+    c at word idx * 32 + c holds (T[idx] & 255) << 7 | c << 2, for the byte
+    tables (P1, P2) and the 32-bit one (P3) alike."""
+    table, _ = {"P1": lut.p1_inputs, "P2": lut.p2_inputs, "P3": lut.p3_inputs}[case]()
+    dtype = torch.int32 if case == "P3" else torch.uint8
+    a = lut.addr_table(_t(table).to(dtype)).numpy().reshape(256, 32)
+    assert a.dtype == np.int32 and a.min() >= 0 and a.max() < 256 * 32 * 4
+    assert np.array_equal(a >> 7, np.broadcast_to((table.astype(np.int64) & 255)[:, None],
+                                                  (256, 32)))
+    assert np.array_equal(a & 127, np.broadcast_to(np.arange(32) << 2, (256, 32)))
+
+
+@pytest.mark.parametrize("rounds", [0, 5, 17, 64, 300])
+@pytest.mark.parametrize("acc", [False, True])
+def test_lut_chain_addr_walk_equals_plain(rounds, acc):
+    """The addr form's plain walk over its entries, at round counts off its
+    unrolled group of 16 and past 256 added to the index bits."""
+    table, x = lut.p1_inputs()
+    x = _t(x[:3])
+    assert torch.equal(lut.lut_chain_addr_plain(x, _t(table), rounds, acc),
+                       lut.lut_chain_plain(x, _t(table), rounds, acc))
 
 
 def _p6_truth(p32_np, len_np, x):
@@ -265,6 +291,53 @@ def test_lut_chain_mma_plain_equals_lut_chain(table_kind):
     assert torch.equal(got, lut.lut_chain(_t(x), _t(table), lut.R_CHAIN, acc))
 
 
+def test_p4_gather_indexes_collapse_to_zero_after_seven_steps():
+    """P4's LUT row (arange(128) * 2654435761) maps gather's index j to 50 j
+    mod 128: 128, 64, ... 2 distinct indexes over steps 0-6, and from step 7
+    on every element reads entry 0 of its row (a broadcast load)."""
+    x, lut_np = latency.p4_inputs()
+    args = (_t(x.view(np.int32)), _t(lut_np.view(np.int32)))
+    for steps in range(8):
+        v = latency.step_chain_plain(*args, steps, "gather").numpy().view(np.uint32)
+        assert len(np.unique(v & 127)) == 128 >> steps
+    assert not (v & 127).any()
+
+
+_SASS = """
+        Function : _Z6kernelPj
+        /*0000*/                   S2R R0, SR_TID.X ;
+        /*0010*/                   LDG.E R2, desc[UR4][R4.64] ;
+        /*0020*/                   SHF.L.U32 R3, R2, 0x2, RZ ;
+        /*0030*/                   LOP3.LUT R3, R5, 0x1fc, R3, 0xf8, !PT ;
+        /*0040*/                   LDS R3, [R3] ;
+        /*0050*/                   IMAD.IADD R2, R2, 0x1, R3 ;
+        /*0060*/                   LDS R6, [R3+0x80] ;
+        /*0070*/                   VIADD R7, R7, 0xfffffffe ;
+        /*0080*/               @P0 BRA 0x20 ;
+        /*0090*/                   STG.E desc[UR4][R4.64], R2 ;
+        /*00a0*/               @P1 BRA 0x10 ;
+        /*00b0*/                   EXIT ;
+"""
+
+
+def test_sass_main_loop_is_the_innermost_loop_with_loads():
+    """prof.sass on a cuobjdump listing: the inner loop (0x20-0x80, two LDS)
+    and not the outer one (0x10-0xa0) is the main loop, and its other
+    instructions a load count the counter and the branch."""
+    from tpu_huffman_torch.prof import sass
+
+    functions = sass.parse(_SASS)
+    assert list(functions) == ["_Z6kernelPj"]
+    assert len(functions["_Z6kernelPj"]) == 12
+    body = sass.main_loop(functions["_Z6kernelPj"])
+    assert body[0].startswith("SHF.L.U32") and body[-1] == "@P0 BRA 0x20"
+    r = sass.summary(body)
+    assert (r["instructions"], r["loads"], r["per_load"]) == (7, 2, 2.5)
+    assert r["opcodes"] == {"LDS": 2, "SHF.L.U32": 1, "LOP3.LUT": 1, "IMAD.IADD": 1,
+                            "VIADD": 1, "BRA": 1}
+    assert sass.main_loop([(0, "EXIT")]) == []
+
+
 def _jnp_steps(kind, x, lut_np):
     """prof_r3_gather_latency.py's step (:15-23), tile by tile over (G, 8,
     128), INNER times, in jnp on the CPU."""
@@ -343,6 +416,8 @@ def test_wrappers_reject_bad_arguments():
         lut.lut_wide(x, table, table, 1, form="onehot")
     with pytest.raises(ValueError):
         latency.step_chain(x, torch.zeros((8, 128), dtype=torch.int32), 1, "scatter")
+    with pytest.raises(ValueError):
+        latency.step_chain(x, torch.zeros((8, 128), dtype=torch.int32), 1, "gather", "leaner")
     with pytest.raises(ValueError):
         pack_ablate.pack_ablate(torch.zeros(4, dtype=torch.uint8),
                                 DeviceTable.for_table(tt.load_static_test_table(), CPU), "win")

@@ -8,8 +8,9 @@
 //   gather:  x = LUT[s][x & 127] + x
 //   gather0: x = LUT[x & 7][l] + x
 // LUT is data, read through the form's load on every step (smem: staged in
-// shared memory; ldg: global through L1; l2: global through L2 only), so
-// the compiler cannot fold gather0's identical rows into a constant.
+// shared memory; ldg: global through L1; l2: global through L2 only; lean:
+// shared memory, with the fewest integer instructions a step), so the
+// compiler cannot fold gather0's identical rows into a constant.
 //
 // Bound: on the card, latency. One thread runs one chain, so at one warp
 // an SM the time per step is the latency of one dependent step; at 64
@@ -23,7 +24,8 @@
 namespace {
 
 enum Kind : int { kChain = 0, kGather = 1, kGather0 = 2 };
-enum Form : int { kSmem = 0, kLdg = 2, kL2 = 3 };  // the numbers of probe_lut.cu
+// smem, ldg and l2 keep the numbers of probe_lut.cu; lean has its own
+enum Form : int { kSmem = 0, kLdg = 2, kL2 = 3, kLean = 7 };
 
 template <int F>
 __device__ __forceinline__ unsigned load(const unsigned* smem, const unsigned* __restrict__ g,
@@ -64,6 +66,57 @@ __global__ void step_chain_kernel(const unsigned* __restrict__ x, const unsigned
   }
 }
 
+// The lean form of gather and gather0: the same steps, the LUT staged in
+// shared memory and read at every step, with the fewest integer
+// instructions a step. The LUT starts at a 4 KB boundary of the shared
+// window (kLeanSmem words leave room for the padding), so a word's address
+// is the LUT's base ORed with its byte offset. What stays the same along a
+// chain, base | the row's offset (gather) or base | the lane's (gather0),
+// is computed once a chain; a step's address is then a shift and one LOP3,
+// ((v << 2) & 0x1FC) | fixed for gather and ((v << 9) & 0xE00) | fixed for
+// gather0 (the bit ranges are disjoint), the load takes it as it is, and
+// one add makes the next value. Steps run in unrolled groups of
+// kLeanGroup, so no counter runs a step.
+constexpr int kLeanGroup = 32;
+constexpr int kLeanSmem = 2048;  // words: 4 KB of LUT and 4 KB for the padding
+
+__device__ __forceinline__ unsigned ld_shared(unsigned addr) {
+  unsigned v;
+  asm volatile("ld.shared.u32 %0, [%1];" : "=r"(v) : "r"(addr));
+  return v;
+}
+
+template <int K>
+__device__ __forceinline__ unsigned lean_step(unsigned fixed, unsigned v) {
+  const unsigned a = K == kGather ? ((v << 2) & 0x1FCu) | fixed : ((v << 9) & 0xE00u) | fixed;
+  return ld_shared(a) + v;
+}
+
+template <int K>
+__global__ void step_lean_kernel(const unsigned* __restrict__ x, const unsigned* __restrict__ lut,
+                                 int steps, unsigned* __restrict__ out, long long n) {
+  __shared__ unsigned smem[kLeanSmem];
+  const unsigned s0 = (unsigned)__cvta_generic_to_shared(smem);
+  const unsigned pad = (0u - s0) & 4095u;
+  unsigned* t = smem + pad / 4;
+  for (int k = threadIdx.x; k < 1024; k += blockDim.x) t[k] = lut[k];
+  __syncthreads();
+  const unsigned base = s0 + pad;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    unsigned v = x[i];
+    const unsigned fixed =
+        base | (K == kGather ? ((unsigned)(i >> 7) & 7u) << 9 : ((unsigned)i & 127u) << 2);
+    int k = 0;
+    for (; k + kLeanGroup <= steps; k += kLeanGroup) {
+#pragma unroll
+      for (int u = 0; u < kLeanGroup; ++u) v = lean_step<K>(fixed, v);
+    }
+    for (; k < steps; ++k) v = lean_step<K>(fixed, v);
+    out[i] = v;
+  }
+}
+
 template <int K, int F>
 cudaError_t launch(const void* x, long long n, const void* lut, int steps, int block, int grid,
                    void* out, cudaStream_t s) {
@@ -79,6 +132,10 @@ cudaError_t by_form(int form, const void* x, long long n, const void* lut, int s
     case kSmem: return launch<K, kSmem>(x, n, lut, steps, block, grid, out, s);
     case kLdg: return launch<K, kLdg>(x, n, lut, steps, block, grid, out, s);
     case kL2: return launch<K, kL2>(x, n, lut, steps, block, grid, out, s);
+    case kLean:
+      step_lean_kernel<K><<<grid, block, 0, s>>>((const unsigned*)x, (const unsigned*)lut, steps,
+                                                 (unsigned*)out, n);
+      return cudaGetLastError();
     default: return cudaErrorInvalidValue;
   }
 }
@@ -87,8 +144,8 @@ cudaError_t by_form(int form, const void* x, long long n, const void* lut, int s
 
 extern "C" {
 
-// kind: 0 chain, 1 gather, 2 gather0; form: 0 smem, 2 ldg, 3 l2 (ignored
-// for chain). lut: 8 x 128 uint32.
+// kind: 0 chain, 1 gather, 2 gather0; form: 0 smem, 2 ldg, 3 l2, 7 lean
+// (ignored for chain). lut: 8 x 128 uint32.
 int thc_probe_step_chain(int device, const void* x, long long n, const void* lut, int steps,
                          int kind, int form, int block, int grid, void* out, void* stream) {
   const cudaError_t set = cudaSetDevice(device);

@@ -27,6 +27,12 @@
 //             left-aligned pattern of length <= 31 has its low 32 - length
 //             bits zero), one copy per bank column as smem_rep: one
 //             conflict-free 4-byte load a lookup, whatever the indexes.
+//   addr      (lut_chain only, its own kernel lut_addr_kernel) the table as
+//             next addresses: entry idx of copy c, in bank column c, holds
+//             the shared-memory address of the next lookup in copy c. A
+//             round is one conflict-free 4-byte load, from a byte or a
+//             32-bit table alike (the accumulating chain's add rides in the
+//             next load's address).
 //
 // Bound: at the scripts' round counts, bytes (each element read and
 // written once); per lookup, the latency of the dependent load (lut_chain)
@@ -35,7 +41,9 @@
 // instructions a lookup: two for the address, the load, two for the
 // marker bit (lsb = e & -e), one LOP3 for the pattern (e ^ lsb), one
 // quarter-rate FLO for the length and one add, about 8 at 128 a cycle an
-// SM, which caps it near 16 lookups a cycle, half the bound. The design keeps every
+// SM, which caps it near 16 lookups a cycle, half the bound. The addr form
+// spends no integer instruction a round, so its chains run at the load
+// rate and hide under the stream's bytes. The design keeps every
 // round dependent on the last (lut_chain) and the table's placement a
 // template parameter, so that each form compiles to its own load
 // instruction and nothing else differs. A block-uniform grid-stride loop
@@ -47,7 +55,9 @@
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
-enum Form : int { kSmem = 0, kSmemRep = 1, kLdg = 2, kL2 = 3, kShfl = 4, kPacked = 5 };
+enum Form : int {
+  kSmem = 0, kSmemRep = 1, kLdg = 2, kL2 = 3, kShfl = 4, kPacked = 5, kAddr = 6
+};
 
 // Byte b of the little-endian word holding entries 4w..4w+3.
 __device__ __forceinline__ unsigned byte_of(unsigned w, unsigned i) {
@@ -342,6 +352,123 @@ __global__ void lut_word_kernel(const int* __restrict__ x0, const unsigned* __re
   }
 }
 
+// lut_chain's addr form. The 256 entries as next addresses, one copy per
+// bank column: entry (idx, c), word idx * 32 + c, holds the shared-memory
+// address of the next lookup in copy c, base + ((T[idx] & 255) << 7) + (c
+// << 2), with base the copies' start. The block builds the entries from a
+// byte or a 32-bit table as it stages them, so P1, P2 and P3 run this one
+// kernel. Lane c walks copy c, so a warp's 32 loads hit 32 banks whatever
+// their indexes: one wavefront a round. A round of the plain chain is the
+// load alone, e = lds(e), with no integer instruction (an offset from the
+// base would need an add a round: ptxas keeps the base in the load's
+// uniform register only sometimes). The accumulating chain adds (r & 255)
+// << 7 to the index bits after the load and masks nothing, so ptxas folds
+// the add into the next load's address ([R + UR + imm]: the group's r in
+// the uniform register, the round's k in the immediate): its copies hold
+// the 256 entries twice (entry idx + 256 = entry idx, 64 KB), so an index
+// up to 255 + 255 reads entry index & 255, and a group of kAddrGroup
+// rounds from a multiple of kAddrGroup never passes 255 + 255. The value
+// is ((e - base) >> 7) & 255.
+// Rounds run in unrolled groups, so no counter runs a round. One chain a
+// thread, as the other forms; the thread's next kAddrAhead elements are
+// loaded before the current chain runs, so the stream's reads are in
+// flight under the lookups instead of after them.
+constexpr int kAddrGroup = 16;
+constexpr int kAddrAhead = 4;  // elements a thread has loaded ahead of its chain
+
+// Entries a copy: the accumulating chain's copies hold the table twice.
+template <bool Acc>
+__host__ __device__ constexpr int addr_entries() {
+  return Acc ? 512 : 256;
+}
+
+// Shared memory a block: the copies, then the 256 entries' offsets.
+template <bool Acc>
+__host__ __device__ constexpr int addr_smem() {
+  return addr_entries<Acc>() * 32 * 4 + 256 * 4;
+}
+
+template <bool Acc>
+__device__ __forceinline__ unsigned addr_chain(unsigned e, int rounds) {
+  int r = 0;
+  for (; r + kAddrGroup <= rounds; r += kAddrGroup) {
+    const unsigned r7 = ((unsigned)r & 255u) << 7;
+#pragma unroll
+    for (int k = 0; k < kAddrGroup; ++k) {
+      e = ld_shared(e);
+      if (Acc) e += r7 + ((unsigned)k << 7);
+    }
+  }
+  for (; r < rounds; ++r) {
+    e = ld_shared(e);
+    if (Acc) e += ((unsigned)r & 255u) << 7;
+  }
+  return e;
+}
+
+// 32 registers at most, so that two blocks of 1024 threads fill an SM
+template <bool Acc>
+__global__ void __launch_bounds__(1024, 2)
+    lut_addr_kernel(const int* __restrict__ x, const void* __restrict__ table, int table_bytes,
+                    int rounds, int* __restrict__ out, long long n) {
+  extern __shared__ unsigned smem[];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  const long long first = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  // Slot k holds the next element of the thread's k-th stride: a slot is
+  // refilled, kAddrAhead strides on, as soon as its element is taken, so
+  // each load has kAddrAhead - 1 chains to arrive in. The slots stay in
+  // registers of their own (the loop over them is unrolled): a rotation
+  // through one register would wait for the newest load at every element.
+  // The first loads are issued before the table is staged, and arrive
+  // meanwhile.
+  unsigned xs[kAddrAhead];
+#pragma unroll
+  for (int k = 0; k < kAddrAhead; ++k) {
+    const long long j = first + k * stride;
+    xs[k] = j < n ? (unsigned)__ldg(x + j) : 0u;
+  }
+  const unsigned base = (unsigned)__cvta_generic_to_shared(smem);
+  // The 256 entries' offsets first, one coalesced load an entry, into the
+  // words after the copies; then the copies from them. Loading an entry a
+  // copy instead would send every warp of the grid to the table's few
+  // lines in L2 at once, 32 times over.
+  unsigned* offsets = smem + addr_entries<Acc>() * 32;
+  for (int idx = threadIdx.x; idx < 256; idx += blockDim.x) {
+    const unsigned v = table_bytes == 1 ? (unsigned)static_cast<const uint8_t*>(table)[idx]
+                                        : static_cast<const unsigned*>(table)[idx];
+    offsets[idx] = base + ((v & 255u) << 7);
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < addr_entries<Acc>() * 32; k += blockDim.x)
+    smem[k] = offsets[(k >> 5) & 255] + (((unsigned)k & 31u) << 2);
+  __syncthreads();
+  const unsigned start = base + ((threadIdx.x & 31u) << 2);
+  for (long long i = first; i < n; i += kAddrAhead * stride) {
+#pragma unroll
+    for (int k = 0; k < kAddrAhead; ++k) {
+      const long long j = i + k * stride;
+      if (j >= n) break;
+      const unsigned e = start + ((xs[k] & 255u) << 7);
+      const long long ahead = j + kAddrAhead * stride;
+      xs[k] = ahead < n ? (unsigned)__ldg(x + ahead) : 0u;
+      out[j] = (int)(((addr_chain<Acc>(e, rounds) - base) >> 7) & 255u);
+    }
+  }
+}
+
+cudaError_t launch_addr(const void* x, long long n, const void* table, int table_bytes,
+                        int rounds, int accumulate, int block, int grid, void* out,
+                        cudaStream_t s) {
+  if (table_bytes != 1 && table_bytes != 4) return cudaErrorInvalidValue;
+  const auto kernel = accumulate ? lut_addr_kernel<true> : lut_addr_kernel<false>;
+  const int smem = accumulate ? addr_smem<true>() : addr_smem<false>();
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, block, smem, s>>>((const int*)x, table, table_bytes, rounds, (int*)out, n);
+  return cudaGetLastError();
+}
+
 template <typename Table, typename Entry, bool Acc>
 cudaError_t launch_chain(const void* x, long long n, const void* table, int rounds, int block,
                          int grid, void* out, cudaStream_t stream) {
@@ -376,8 +503,10 @@ cudaError_t wide_form(const void* x0, long long n, const void* p32, const void* 
 
 extern "C" {
 
-// form: 0 smem, 1 smem_rep, 2 ldg, 3 l2, 4 shfl. table: 256 entries of
-// table_bytes (1: uint8, 4: int32). block must be a multiple of 32.
+// form: 0 smem, 1 smem_rep, 2 ldg, 3 l2, 4 shfl, 6 addr. table: 256
+// entries of table_bytes (1: uint8, 4: int32). block must be a multiple of
+// 32; addr takes 33 KB of shared memory a block (65 KB with accumulate),
+// so blocks of 1024 threads, two an SM, fill it with 2048.
 int thc_probe_lut_chain(int device, const void* x, long long n, const void* table,
                         int table_bytes, int rounds, int accumulate, int form, int block,
                         int grid, void* out, void* stream) {
@@ -390,6 +519,7 @@ int thc_probe_lut_chain(int device, const void* x, long long n, const void* tabl
     case kLdg: return (int)chain_form<kLdg>(x, n, table, table_bytes, rounds, accumulate, block, grid, out, s);
     case kL2: return (int)chain_form<kL2>(x, n, table, table_bytes, rounds, accumulate, block, grid, out, s);
     case kShfl: return (int)chain_form<kShfl>(x, n, table, table_bytes, rounds, accumulate, block, grid, out, s);
+    case kAddr: return (int)launch_addr(x, n, table, table_bytes, rounds, accumulate, block, grid, out, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

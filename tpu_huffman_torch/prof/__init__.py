@@ -27,7 +27,8 @@ plain version, and the timers (CUDA events; for the kernels, calls queued
 behind a sleep kernel so that the host's time does not count; warm-up,
 median of 11; the slope between two round or step counts, which takes the
 launch out). ``chip_smoke.py`` times its wrappers and plain versions with
-the same :func:`median_ms`.
+the same :func:`median_ms`. :mod:`.sass` reads a built kernel's main loop
+in SASS (``cuobjdump``): its instructions a shared-memory load, by opcode.
 """
 
 from __future__ import annotations

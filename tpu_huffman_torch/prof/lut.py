@@ -14,7 +14,10 @@ of the Pallas lookup probes:
 
 ``form`` places the table: ``smem``, ``smem_rep`` (a copy per bank
 column), ``ldg`` (global, through L1), ``l2`` (global, L2 only), ``shfl``
-(the warp's registers, read with ``__shfl_sync``), and for
+(the warp's registers, read with ``__shfl_sync``), for :func:`lut_chain`
+``addr`` (the table as next addresses, :func:`addr_table`, a copy per bank
+column: one conflict-free load a round; its own kernel, whose plain
+version :func:`lut_chain_addr_plain` walks the same entries), and for
 :func:`lut_wide` ``packed`` (pattern and length as one 64-bit shared
 memory entry) and ``word`` (pattern and length as one 32-bit marker-bit
 word, :func:`word_table`, a copy per bank column: one conflict-free load a
@@ -23,8 +26,9 @@ same function; the plain version is one function whatever the form.
 
 ``python -m tpu_huffman_torch.prof.lut`` checks every form on the card
 against the plain version at the scripts' shapes, prints ns per lookup at
-a shape that fills the card, and the ns per dependent lookup of every
-``lut_chain`` form at 1, 8 and 64 warps an SM.
+a shape that fills the card (the old ``smem`` form timed first and again
+last), and the ns per dependent lookup of every ``lut_chain`` form at 1,
+8 and 64 warps an SM.
 """
 
 from __future__ import annotations
@@ -53,10 +57,15 @@ from . import (
     tile,
 )
 
-FORMS = ("smem", "smem_rep", "ldg", "l2", "shfl")
-WIDE_FORMS = FORMS + ("packed", "word")
-_FORM_ID = {"smem": 0, "smem_rep": 1, "ldg": 2, "l2": 3, "shfl": 4, "packed": 5}
+_PLACEMENTS = ("smem", "smem_rep", "ldg", "l2", "shfl")
+FORMS = _PLACEMENTS + ("addr",)
+WIDE_FORMS = _PLACEMENTS + ("packed", "word")
+_FORM_ID = {"smem": 0, "smem_rep": 1, "ldg": 2, "l2": 3, "shfl": 4, "packed": 5, "addr": 6}
 THREADS = 256
+# the addr form's blocks: a block takes 33 KB of shared memory (65 KB with
+# accumulate: its copies hold the table twice), so two of 1024 threads fill
+# an SM
+ADDR_THREADS = 1024
 # the word form's blocks: a block takes 64 KB of shared memory (its 32 KB
 # of copies start at a 32 KB boundary), so two of 1024 threads fill an SM
 WORD_THREADS = 1024
@@ -113,14 +122,14 @@ def _check_x(x: torch.Tensor, name: str) -> None:
 
 
 def lut_chain(x: torch.Tensor, table: torch.Tensor, rounds: int, accumulate: bool = False,
-              form: str = "smem", block: int = THREADS) -> torch.Tensor:
+              form: str = "smem", block: int | None = None) -> torch.Tensor:
     """``rounds`` dependent lookups of every element: ``x = (T[x] + r) &
     255`` with ``accumulate``, else ``x = T[x] & 255``, r = 0, 1, ...
 
     ``x``: int32, any shape (values taken & 255); ``table``: 256 entries,
     uint8 (a byte table) or int32 (a 32-bit one). ``block`` (a multiple of
     32) sets the kernel's block size, with which the caller sets the
-    occupancy.
+    occupancy; None takes ADDR_THREADS for ``addr``, else THREADS.
     """
     _check_x(x, "x")
     if table.dtype not in (torch.uint8, torch.int32) or table.shape != (256,):
@@ -130,7 +139,11 @@ def lut_chain(x: torch.Tensor, table: torch.Tensor, rounds: int, accumulate: boo
     if table.device != x.device:
         raise ValueError("x and table are on different devices")
     if not is_cuda(x):
+        if form == "addr":
+            return lut_chain_addr_plain(x, table, rounds, accumulate)
         return lut_chain_plain(x, table, rounds, accumulate)
+    if block is None:
+        block = ADDR_THREADS if form == "addr" else THREADS
     if block % 32 or not 32 <= block <= 1024:
         raise ValueError("block must be a multiple of 32 in [32, 1024]")
     table = table.contiguous()
@@ -154,6 +167,35 @@ def lut_chain_plain(x: torch.Tensor, table: torch.Tensor, rounds: int,
     for r in range(rounds):
         y = (t[y] + (r if accumulate else 0)) & 255
     return y.to(torch.int32)
+
+
+def addr_table(table: torch.Tensor) -> torch.Tensor:
+    """The addr form's entries as its kernel stages them: int32[256 * 32],
+    entry idx of copy c at word ``idx * 32 + c``, holding the byte offset of
+    the next lookup in copy c, ``((T[idx] & 255) << 7) | (c << 2)``, from a
+    byte or a 32-bit table alike. The kernel adds the copies' shared address,
+    so that an entry is the next load's address, and for ``accumulate``
+    stages the 256 rows twice (row idx + 256 = row idx)."""
+    t = table.to(torch.int64) & 255
+    c = torch.arange(32, device=table.device)
+    return ((t[:, None] << 7) | (c[None, :] << 2)).reshape(-1).to(torch.int32)
+
+
+def lut_chain_addr_plain(x: torch.Tensor, table: torch.Tensor, rounds: int,
+                         accumulate: bool = False) -> torch.Tensor:
+    """Plain version of the addr form: the walk of its kernel over
+    :func:`addr_table`, element i in lane i % 32 (its lane in a warp of
+    the grid-stride loop), ``e = A[e >> 2]`` on row e >> 7 taken & 255 (the
+    kernel's second copy of the rows), with ``accumulate`` then ``e += (r &
+    255) << 7`` unmasked; the value is ``(e >> 7) & 255``."""
+    a = addr_table(table).to(torch.int64)
+    lane = torch.arange(x.numel(), device=x.device).reshape(x.shape) % 32
+    e = ((x.to(torch.int64) & 255) << 7) | (lane << 2)
+    for r in range(rounds):
+        e = a[(e >> 2) & (a.numel() - 1)]
+        if accumulate:
+            e = e + ((r & 255) << 7)
+    return ((e >> 7) & 255).to(torch.int32)
 
 
 # ---- lut_wide ---------------------------------------------------------------
@@ -290,11 +332,13 @@ def run(dev: torch.device | None = None) -> dict:
     Every timed launch (each form at both round counts, each block size of
     the sweep) is also held against the plain version at its own shape.
 
-    The wide forms are timed in one kernel_ms call, ``smem`` (the design
-    before ``word``) first and again last (``again_ms``).
+    The chain forms are timed in one kernel_ms call, and so are the wide
+    ones, ``smem`` (the design before ``addr`` and ``word``) first and
+    again last (``again_ms``).
 
     Returns {"chain": {case: {form: {...}}}, "wide": {form: {...}},
-    "sweep": {form: {warps: ns per dependent lookup}}, "fill": the timed
+    "sweep": {form: {warps: ns per dependent lookup}}, "stream": P2's
+    addr at 0 rounds and a copy of its bytes (ms), "fill": the timed
     tensors, "max_abs_err": {kernel: over every comparison}}. Kernel times
     are the kernel alone; ns per lookup is the slope between two round
     counts over the elements.
@@ -304,8 +348,11 @@ def run(dev: torch.device | None = None) -> dict:
     err = {"lut_chain": 0, "lut_wide": 0}
     cases = chain_cases(dev)
     calls, want = {}, {}
+    chain_rounds = (R_CHAIN, 4 * R_CHAIN)
     for name, (x, table, acc) in cases.items():
         plain = lut_chain_plain(x, table, R_CHAIN, acc)
+        check_equal(f"lut_chain {name} addr's plain walk", lut_chain_addr_plain(
+            x, table, R_CHAIN, acc), plain)
         for form in FORMS:
             err["lut_chain"] = max(err["lut_chain"], check_equal(
                 f"lut_chain {name} {form}", lut_chain(x, table, R_CHAIN, acc, form), plain))
@@ -313,10 +360,16 @@ def run(dev: torch.device | None = None) -> dict:
         res["fill"][name] = (xf, table, acc)
         res["chain"][name] = {"plain_ms": median_ms(
             functools.partial(lut_chain_plain, xf, table, R_CHAIN, acc))}
-        for k in (R_CHAIN, 4 * R_CHAIN):
+        for k in chain_rounds:
             want[name, k] = lut_chain_plain(xf, table, k, acc)
-            for form in FORMS:
-                calls[name, form, k] = functools.partial(lut_chain, xf, table, k, acc, form)
+    # every case and form in one kernel_ms call, the old design (smem)
+    # first and last
+    for form in ("smem",) + tuple(f for f in FORMS if f != "smem") + ("smem",):
+        for name, (xf, table, acc) in res["fill"].items():
+            for k in chain_rounds:
+                label = (name, form, k) if (name, form, k) not in calls else (name, form, k,
+                                                                                "again")
+                calls[label] = functools.partial(lut_chain, xf, table, k, acc, form)
     err["lut_chain"] = max(err["lut_chain"], check_calls(
         "lut_chain", calls, lambda label: want[label[0], label[2]]))
     t = kernel_ms(calls)
@@ -328,6 +381,15 @@ def run(dev: torch.device | None = None) -> dict:
             res["chain"][name][form] = {
                 "ms": lo, "ns_per_lookup": slope_ns(lo, hi, 3 * R_CHAIN) / n,
                 "plain_ms": plain_ms}
+        res["chain"][name]["smem"]["again_ms"] = t[name, "smem", R_CHAIN, "again"]
+    # what the stream alone costs: addr at 0 rounds (its loads, staging and
+    # stores) beside a device copy of the same bytes
+    xf, table, _ = res["fill"]["P2"]
+    zero = functools.partial(lut_chain, xf, table, 0, False, "addr")
+    err["lut_chain"] = max(err["lut_chain"], check_equal(
+        "lut_chain P2 addr 0 rounds", zero(), lut_chain_plain(xf, table, 0)))
+    t = kernel_ms({"zero": zero, "copy": xf.clone})
+    res["stream"] = {"addr_0_rounds_ms": t["zero"], "copy_ms": t["copy"]}
 
     p32_np, len_np, x_np = p6_inputs()
     p32 = torch.from_numpy(p32_np.view(np.int32)).to(dev)
@@ -405,7 +467,11 @@ def main() -> None:
         for form, r in forms.items():
             print(f"lut_chain {name} {form:8s}: {r['ms']:.4f} ms at {FILL_ELEMENTS} elements x "
                   f"{R_CHAIN} rounds, {r['ns_per_lookup']:.5f} ns/lookup (plain "
-                  f"{r['plain_ms']:.3f} ms); equal to plain at the script's shape")
+                  f"{r['plain_ms']:.3f} ms); equal to plain at the script's shape"
+                  + (f"; again after the others {r['again_ms']:.4f} ms" if "again_ms" in r
+                     else ""))
+    print(f"lut_chain P2 addr at 0 rounds {res['stream']['addr_0_rounds_ms']:.4f} ms, a copy of "
+          f"the same bytes (clone) {res['stream']['copy_ms']:.4f} ms")
     for form, r in res["wide"].items():
         print(f"lut_wide P6 {form:8s}: {r['ms']:.4f} ms at {FILL_ELEMENTS} elements x {R_WIDE} "
               f"rounds, {r['ns_per_lookup']:.5f} ns/lookup (plain {r['plain_ms']:.3f} ms)"

@@ -125,7 +125,10 @@ Phases (any failure raises and the script exits non-zero):
      word a lookup, timed beside smem, the design before it), every mode
      of lut_wide_mma (the mma.sync kernel it had, that kernel's split, the
      wgmma and reworked mma.sync kernels, each with its registers and
-     blocks an SM) and lut_chain_mma against lut_wide / lut_chain, every
+     blocks an SM) against lut_wide, both forms of lut_chain_mma (P1 and
+     P3; its nibble form, the one-hot over the low nibble, two independent
+     mma a tile-round and a third that sums the row, timed beside sync,
+     the design before it) against lut_chain, every
      kind and form of step_chain (P4; gather's and gather0's lean form,
      the fewest integer instructions a step, timed beside gather smem),
      every pack_ablate mode (P5; the per-thread loop of the design before
@@ -1437,10 +1440,7 @@ def phase_probes(torch, dev) -> list:
         print(f"phase 10 lut_chain P3 {form} ns per dependent lookup: "
               + ", ".join(f"{w} warps/SM {ns:.3f}" for w, ns in by_w.items()))
     for name, r in sass.loops().items():
-        per = "no LDS loop" if r["per_load"] is None else f"{r['per_load']:.3f} a load"
-        print(f"phase 10 sass {name}: main loop {r['instructions']} instructions, {r['loads']} "
-              f"LDS, other instructions {per}; "
-              + ", ".join(f"{op} {n}" for op, n in r["opcodes"].items()))
+        print(f"phase 10 sass {name}: {sass.text(r)}")
     for (kind, form), r in res["latency"]["configs"].items():
         print(f"phase 10 step_chain {kind} {form} ns per dependent step: "
               + ", ".join(f"{w} warps/SM {ns:.3f}" for w, ns in r["sweep"].items())
@@ -1458,9 +1458,17 @@ def phase_probes(torch, dev) -> list:
           f"({mma_lut.OLD_MODE}) {mma['wide']['was_ms']:.4f} ms; plain "
           f"{mma['wide']['plain_ms']:.3f} ms ({mma_lut.OLD_MODE}'s "
           f"{mma['wide']['was_plain_ms']:.3f})")
-    print(f"phase 10 lut_chain_mma, {mma['n']} elements: {mma['chain']['ms']:.4f} ms "
-          f"({mma['chain']['ns_per_lookup']:.5f} ns/lookup), plain "
-          f"{mma['chain']['plain_ms']:.3f} ms")
+    chain_mma = mma["chain"]
+    for case, kinds in chain_mma["cases"].items():
+        print(f"phase 10 lut_chain_mma {case}, {mma['n']} elements x {lut.R_CHAIN} rounds: "
+              + ", ".join(f"{k} {r['ms']:.4f} ms ({r['ns_per_lookup']:.5f} ns/lookup; "
+                          f"{r['registers']} registers, {r['threads_per_sm']} threads an SM)"
+                          for k, r in kinds.items() if k != "sync again")
+              + f"; sync again after the others {kinds['sync again']:.4f} ms")
+    print(f"phase 10 lut_chain_mma: {mma_lut.NEW_FORM} {chain_mma['ms']:.4f} ms, was "
+          f"({mma_lut.OLD_FORM}) {chain_mma['was_ms']:.4f} ms, again "
+          f"{chain_mma['was_again_ms']:.4f}; plain {chain_mma['plain_ms']:.3f} ms "
+          f"({mma_lut.OLD_FORM}'s {chain_mma['was_plain_ms']:.3f})")
     pk = res["pack"]
     print(f"phase 10 pack_ablate, {pk['n']} symbols, one thread a chunk (32 symbols but "
           f"'thread 4'), full one block a tile ({pk['n_tiles']} tiles): "
@@ -1536,11 +1544,28 @@ def phase_probes(torch, dev) -> list:
         return y
 
     onehot_ms = prof.median_ms(onehot_matmul)
+    # P1's k_onehot as the TPU script writes it: the 256-wide one-hot times
+    # the (256, 1) table, + r, & 255, chained
+    xc, tc, acc_c = mma["fill"]["P1"]
+    xc64, tab_c = xc.to(torch.int64), tc.to(torch.bfloat16).reshape(256, 1)
+
+    def onehot_chain():
+        y = xc64
+        for r in range(lut.R_CHAIN):
+            y = (torch.matmul(F.one_hot(y, 256).to(torch.bfloat16), tab_c)[:, 0].to(torch.int64)
+                 + r) & 255
+        return y
+
+    if not acc_c or not torch.equal(onehot_chain().to(torch.int32),
+                                    lut.lut_chain(xc, tc, lut.R_CHAIN, True)):
+        raise AssertionError("the chained one-hot torch.matmul differs from lut_chain")
+    onehot_chain_ms = prof.median_ms(onehot_chain)
     print(f"phase 10 library: {lut.R_CHAIN} chained torch.take {take_ms:.4f} ms "
           f"({prof.FILL_ELEMENTS} elements; P2's table), {take3_ms:.4f} ms (P3's 32-bit "
           f"table, masked); {lut.R_WIDE} torch.take of the packed wide entry "
           f"{take_wide_ms:.4f} ms; {lut.R_WIDE} one-hot torch.matmul (bf16) {onehot_ms:.4f} ms "
-          f"({mma['n']} elements)")
+          f"({mma['n']} elements); {lut.R_CHAIN} chained one-hot torch.matmul (bf16, P1) "
+          f"{onehot_chain_ms:.4f} ms ({mma['n']} elements)")
 
     n = prof.FILL_ELEMENTS
     chain_row = res["lut"]["chain"]["P2"]["addr"]
@@ -1579,8 +1604,7 @@ def phase_probes(torch, dev) -> list:
         {"name": "lut_wide_mma", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/probe_mma_lut.cu",
          "replaces": "scripts/prof/prof_mxu_lut.py:152",
-         "also_replaces": "scripts/prof/prof_kernel_lut.py:37 (k_onehot, as lut_chain_mma)",
-         "launches": launched["lut_wide_mma"] + launched["lut_chain_mma"],
+         "launches": launched["lut_wide_mma"],
          "ms": mma["wide"]["ms"], "was_ms": mma["wide"]["was_ms"],
          "was": f"{mma_lut.OLD_MODE} mode", "plain_ms": mma["wide"]["plain_ms"],
          "library_ms": onehot_ms,
@@ -1589,8 +1613,26 @@ def phase_probes(torch, dev) -> list:
          "modes_ms": {m: r["ms"] for m, r in mma["wide"]["modes"].items()},
          "modes_shape": {m: {k: r[k] for k in ("registers", "block", "blocks_per_sm",
                                                "threads_per_sm")}
-                         for m, r in mma["wide"]["modes"].items()},
-         "chain_mma_ms": mma["chain"]["ms"]},
+                         for m, r in mma["wide"]["modes"].items()}},
+        {"name": "lut_chain_mma", "route": "cuda",
+         "source": "tpu_huffman_torch/csrc/probe_mma_lut.cu",
+         "replaces": "scripts/prof/prof_kernel_lut.py:37 (k_onehot, :93)",
+         "launches": launched["lut_chain_mma"] + launched["lut_chain_mma_nibble"],
+         "nibble_launches": launched["lut_chain_mma_nibble"],
+         "ms": chain_mma["ms"], "was_ms": chain_mma["was_ms"],
+         "was_again_ms": chain_mma["was_again_ms"], "was": f"{mma_lut.OLD_FORM} form",
+         "plain_ms": chain_mma["plain_ms"], "was_plain_ms": chain_mma["was_plain_ms"],
+         "library_ms": onehot_chain_ms,
+         "library": f"{lut.R_CHAIN} chained torch.matmul(F.one_hot(x, 256).bfloat16(), "
+                    f"T as (256, 1) bf16) + r, & 255",
+         "timed": f"P1 (accumulate), form {mma_lut.NEW_FORM}, at {mma['n']} elements x "
+                  f"{lut.R_CHAIN} rounds",
+         "forms_ms": {c: {k: (r if k == "sync again" else r["ms"]) for k, r in kinds.items()}
+                      for c, kinds in chain_mma["cases"].items()},
+         "forms_shape": {c: {k: {f: r[f] for f in ("registers", "block", "blocks_per_sm",
+                                                   "threads_per_sm")}
+                             for k, r in kinds.items() if k != "sync again"}
+                         for c, kinds in chain_mma["cases"].items()}},
         {"name": "step_chain", "route": "cuda",
          "source": "tpu_huffman_torch/csrc/probe_latency.cu",
          "replaces": "scripts/prof/prof_r3_gather_latency.py:31",
@@ -1629,7 +1671,6 @@ def phase_probes(torch, dev) -> list:
     ]
     # each run() held every launch it timed against its plain version
     errs = {k: v for r in res.values() for k, v in r["max_abs_err"].items()}
-    errs["lut_wide_mma"] = max(errs["lut_wide_mma"], errs.pop("lut_chain_mma"))
     for row in rows:
         row["max_abs_err"] = errs[row["name"]]
         if row["name"] == "lut_wide_mma":
@@ -1640,8 +1681,19 @@ def phase_probes(torch, dev) -> list:
             row["bound_ms"], row["bound_by"] = (
                 (by_bytes, "bytes") if by_bytes >= by_ops
                 else (by_ops, "operations (tensor-core bf16 flops over 989e12)"))
-            # lut_chain_mma: the same one-hot product a lookup, R_CHAIN rounds
-            row["chain_mma_bound_ms"] = max(
+        elif row["name"] == "lut_chain_mma":
+            # the TPU product's work: a one-hot row of 256 times a (256, 1)
+            # table, 512 flops a lookup; the sync form pads it to 8
+            # columns, 4096 flops (padded_bound_ms); bytes: x and out once,
+            # the nibble form's (16, 16) bf16 table
+            n_m = mma["n"]
+            by_bytes = (8 * n_m + 16 * 16 * 2) / HBM_BYTES_PER_S * 1e3
+            by_ops = n_m * lut.R_CHAIN * 2 * 256 / BF16_FLOPS_PER_S * 1e3
+            row["bound_ms"], row["bound_by"] = (
+                (by_bytes, "bytes") if by_bytes >= by_ops
+                else (by_ops, "operations (the TPU product's 512 bf16 flops a lookup over "
+                              "989e12)"))
+            row["padded_bound_ms"] = max(
                 by_bytes, n_m * lut.R_CHAIN * 2 * 256 * 8 / BF16_FLOPS_PER_S * 1e3)
         else:
             row["bound_ms"], row["bound_by"] = _bound(*row.pop("work"))

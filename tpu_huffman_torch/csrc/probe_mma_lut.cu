@@ -5,7 +5,7 @@
 // body k_onehot :127), the MXU one-hot lookup of P6, and the one-column
 // case of scripts/prof/prof_kernel_lut.py's k_onehot (:93, run :37).
 //
-// Three kernels compute it:
+// Four kernels compute it:
 //
 // mma_lut_kernel (modes 0-4), by mma.sync.m16n8k16. The table is a
 // (256, 8) bf16 matrix B, column-major fragments kept in registers for
@@ -46,9 +46,25 @@
 // fragments read from shared memory (one 8-byte load a k-step for four
 // mma), 2 blocks of 256 an SM.
 //
-// Modes 5-7 build the one-hot with one set.eq.f16x2 an A register (4 a
-// k-step, where mode 0 takes 2 ISETP and 4 SEL; HotKeys below), and share
-// an epilogue with no branch on t: each column becomes 128 c + 1.5 * 2^23,
+// chain_nibble_kernel (modes 8, 9), P1's chain x = (T[x] (+ r)) & 255 by
+// mma.sync with the 256-wide one-hot factored: the table is a 16 x 16 B,
+// B[lo][hi] = T[16 hi + lo] & 255, so a row's one-hot is 16 wide, over
+// lo = x & 15, and one k-step covers the table (4 B registers a thread).
+// A tile-round starts with two independent m16n8k16 (hi 0-7 and hi 8-15):
+// 2 * 16 * 16 flops a lookup, the TPU product's 512, where
+// mma_lut_kernel's chain modes spend 16 dependent k-steps, 4096 flops, on
+// a K of 256. Row g's answer is then column hi = x >> 4 of C. The two
+// products run in fp16, so that C comes out in the layout of an A
+// fragment over hi; four set.eq of the high nibble and four mul.f16x2
+// keep column hi alone, and a third m16n8k16 against a B of ones (its C
+// operand 1024 + r) sums each row, so every thread of the group holds
+// 1024 + T[x] (+ r), exact in fp16, whose bits' low byte is the next
+// index: no shuffle, no integer select. kNibbleTiles independent tiles a
+// warp hide the HMMA latencies.
+//
+// Modes 5-9 build the one-hot with one set.eq.f16x2 an A register (4 a
+// k-step, where mode 0 takes 2 ISETP and 4 SEL; HotKeys below). Modes 5-7
+// share an epilogue with no branch on t: each column becomes 128 c + 1.5 * 2^23,
 // whose bits hold the entry in the low byte and zeros above it; one
 // byte_perm with a per-thread selector places the two bytes (t = 0, 1) or
 // nothing (t = 2, 3), and every thread adds the bits of its first column
@@ -58,15 +74,20 @@
 //
 // Integers <= 255 are exact in bf16 and their one-hot sums exact in f32.
 //
-// Bound: tensor-core operations as executed, 2 * 256 * 8 flops a lookup
-// (the one-hot's K of 256 is the cost: only one of its 16 k-steps holds
-// the 1), over the card's bf16 rate. The one-hot's construction runs
+// Bound: tensor-core operations, over the card's bf16 rate. Modes 0-7
+// execute 2 * 256 * 8 flops a lookup (the one-hot's K of 256 is the cost:
+// only one of its 16 k-steps holds the 1); the one-hot's construction runs
 // beside it: a thread writes 4 A registers a k-step (rows g and g + 8,
 // columns 2t..2t+1 and 2t+8..2t+9), 4 warp-instructions for 16 lookups a
 // k-step at least. mma.sync at N = 8 reaches about half the bf16 rate,
-// and the build's instructions do not all hide under it.
+// and the build's instructions do not all hide under it. Modes 8 and 9
+// execute the TPU product's 2 * 256 flops a lookup (the row sum's third
+// product adds 2 * 16 * 8 on the ones). Their instructions, not the
+// tensor cores' flops, bound them: a tile-round is 3 HMMA, 8 set.eq,
+// 4 mul.f16x2 and a few integer instructions.
 
 #include <cstdint>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -477,6 +498,136 @@ __global__ void __launch_bounds__(256, 2)
   }
 }
 
+// ---- the nibble one-hot chain (modes 8, 9) --------------------------------
+
+constexpr int kNibbleTiles = 4;              // modes 8 and 9's tiles a warp
+constexpr unsigned kLowBytes = 0x00FF00FFu;  // a packed pair of indexes
+constexpr unsigned kPairStep = 0x00010001u;  // + 1 to both halves
+constexpr unsigned kKeys0 = kKey0 * kPairStep;  // fp16 1024.0 in both halves
+constexpr unsigned kOnes = 0x3C003C00u;      // fp16 1.0 in both halves
+
+// set.eq.f16x2 of key against the low (H = 0) or high (H = 1) half of w
+// in both halves.
+template <int H>
+__device__ __forceinline__ unsigned set_eq_half(unsigned key, unsigned w) {
+  unsigned d;
+  if constexpr (H == 0) {
+    asm("{\n.reg .b16 l, h;\n.reg .b32 s;\nmov.b32 {l, h}, %2;\nmov.b32 s, {l, l};\n"
+        "set.eq.f16x2.f16x2 %0, %1, s;\n}\n" : "=r"(d) : "r"(key), "r"(w));
+  } else {
+    asm("{\n.reg .b16 l, h;\n.reg .b32 s;\nmov.b32 {l, h}, %2;\nmov.b32 s, {h, h};\n"
+        "set.eq.f16x2.f16x2 %0, %1, s;\n}\n" : "=r"(d) : "r"(key), "r"(w));
+  }
+  return d;
+}
+
+__device__ __forceinline__ unsigned mul_f16x2(unsigned a, unsigned b) {
+  unsigned d;
+  asm("mul.rn.f16x2 %0, %1, %2;" : "=r"(d) : "r"(a), "r"(b));
+  return d;
+}
+
+// d = a @ b + c, m16n8k16, fp16 in and out: d[0] = C[g][2t, 2t + 1],
+// d[1] = C[g + 8][2t, 2t + 1], the layout of an A register pair.
+__device__ __forceinline__ void mma_f16(unsigned (&d)[2], const unsigned (&a)[4], unsigned b0,
+                                        unsigned b1, unsigned c0, unsigned c1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f16.f16.f16.f16 "
+      "{%0, %1}, {%2, %3, %4, %5}, {%6, %7}, {%8, %9};\n"
+      : "=r"(d[0]), "=r"(d[1])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1), "r"(c0), "r"(c1));
+}
+
+// What a thread keeps for the whole kernel: B's fragments as fp16 (n-tile
+// h = columns hi = 8h..8h+7: rows 2t, 2t + 1 and 2t + 8, 2t + 9 of column
+// 8h + g), its A columns (2t, 2t + 1) and (2t + 8, 2t + 9) as fp16x2 keys
+// 1024 + column, and the same columns as keys of the high nibble,
+// 1024 + 16 column.
+struct NibbleThread {
+  unsigned b[2][2], key_lo, key_hi, hkey_lo, hkey_hi, t;
+  __device__ __forceinline__ void load(const unsigned short* __restrict__ tab, unsigned lane) {
+    const unsigned g = lane >> 2;
+    t = lane & 3u;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const unsigned col = 8u * h + g, k = 2u * t + 8u * i;
+        // the integer's bf16 bits to fp16 bits
+        const unsigned lo = __half_as_ushort(
+            __float2half_rn(__uint_as_float((unsigned)__ldg(tab + k * 16 + col) << 16)));
+        const unsigned hi = __half_as_ushort(
+            __float2half_rn(__uint_as_float((unsigned)__ldg(tab + (k + 1) * 16 + col) << 16)));
+        b[h][i] = lo | (hi << 16);
+      }
+    }
+    key_lo = (kKey0 + 2u * t) | ((kKey0 + 2u * t + 1u) << 16);
+    key_hi = key_lo + 8u * kPairStep;
+    hkey_lo = (kKey0 + 32u * t) | ((kKey0 + 32u * t + 16u) << 16);
+    hkey_hi = hkey_lo + 128u * kPairStep;
+  }
+};
+
+// One tile-round. w holds rows g and g + 8 as fp16 1024 + x (low byte x);
+// bias is 1024 + (r & 255) with accumulate, else 1024, in both halves.
+// Four set.eq of lo = x & 15 build the A registers; the first two
+// products, in fp16, give C = T (rows by lo, columns by hi) in the layout
+// of an A fragment over hi; set.eq of the high nibble and one mul.f16x2 a
+// register keep column hi alone, and a third product with a B of ones
+// sums the row: every thread of the group gets 1024 + T[x] (+ r), exact
+// in fp16, in both rows. No shuffle.
+__device__ __forceinline__ unsigned nibble_round(unsigned w, unsigned bias,
+                                                 const NibbleThread& th) {
+  const unsigned klo = (w & 0x000F000Fu) | kKeys0;  // 1024 + lo
+  const unsigned a[4] = {set_eq_half<0>(th.key_lo, klo), set_eq_half<1>(th.key_lo, klo),
+                         set_eq_half<0>(th.key_hi, klo), set_eq_half<1>(th.key_hi, klo)};
+  unsigned c0[2], c1[2], d[2];
+  mma_f16(c0, a, th.b[0][0], th.b[0][1], 0u, 0u);
+  mma_f16(c1, a, th.b[1][0], th.b[1][1], 0u, 0u);
+  const unsigned khi = (w & 0x00F000F0u) | kKeys0;  // 1024 + 16 hi
+  const unsigned sel[4] = {mul_f16x2(c0[0], set_eq_half<0>(th.hkey_lo, khi)),
+                           mul_f16x2(c0[1], set_eq_half<1>(th.hkey_lo, khi)),
+                           mul_f16x2(c1[0], set_eq_half<0>(th.hkey_hi, khi)),
+                           mul_f16x2(c1[1], set_eq_half<1>(th.hkey_hi, khi))};
+  mma_f16(d, sel, kOnes, kOnes, bias, bias);
+  return __byte_perm(d[0], d[1], 0x5410);
+}
+
+// tab: B, (16, 16) bf16, row-major (B[lo][hi] = T[16 hi + lo] & 255). A
+// warp takes kNibbleTiles tiles of 16 elements; rows past n take index 0
+// and run every mma with the warp, and are not stored.
+template <bool Acc>
+__global__ void __launch_bounds__(256, 4)
+    chain_nibble_kernel(const int* __restrict__ x, const unsigned short* __restrict__ tab,
+                        int rounds, int* __restrict__ out, long long n) {
+  const unsigned lane = threadIdx.x & 31u, g = lane >> 2;
+  NibbleThread th;
+  th.load(tab, lane);
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const long long n_warps = ((long long)gridDim.x * blockDim.x) >> 5;
+  for (long long base = warp * 16 * kNibbleTiles; base < n;
+       base += n_warps * 16 * kNibbleTiles) {
+    unsigned v[kNibbleTiles];
+#pragma unroll
+    for (int q = 0; q < kNibbleTiles; ++q) {
+      const long long e0 = base + 16 * q + g, e1 = e0 + 8;
+      v[q] = (e0 < n ? (unsigned)x[e0] & 255u : 0u) |
+             (e1 < n ? ((unsigned)x[e1] & 255u) << 16 : 0u);
+    }
+    unsigned rr = 0u;  // (r & 255) in both halves
+    for (int r = 0; r < rounds; ++r) {
+#pragma unroll
+      for (int q = 0; q < kNibbleTiles; ++q) v[q] = nibble_round(v[q], kKeys0 + rr, th);
+      if constexpr (Acc) rr = (rr + kPairStep) & kLowBytes;
+    }
+#pragma unroll
+    for (int q = 0; q < kNibbleTiles; ++q) {
+      const long long e0 = base + 16 * q + g, e1 = e0 + 8;
+      if (th.t == 0 && e0 < n) out[e0] = (int)(v[q] & 255u);
+      if (th.t == 0 && e1 < n) out[e1] = (int)((v[q] >> 16) & 255u);
+    }
+  }
+}
+
 // ---- launch ----------------------------------------------------------------
 
 template <bool Wide, bool Acc, int S>
@@ -495,6 +646,8 @@ const void* kernel_of(int mode) {
     case 5: return (const void*)wgmma_wide_kernel<16>;
     case 6: return (const void*)wgmma_wide_kernel<8>;
     case 7: return (const void*)sync_tiles_kernel;
+    case 8: return (const void*)chain_nibble_kernel<false>;
+    case 9: return (const void*)chain_nibble_kernel<true>;
     default: return nullptr;
   }
 }
@@ -503,6 +656,7 @@ const void* kernel_of(int mode) {
 long long per_block(int mode, int block) {
   if (mode == 5 || mode == 6) return 64;
   if (mode == 7) return 16ll * kTiles * (block / 32);
+  if (mode >= 8) return 16ll * kNibbleTiles * (block / 32);
   return block;
 }
 
@@ -516,15 +670,18 @@ extern "C" {
 // idx & 15 hot in every k-step), 4 wide without the mma (build and
 // epilogue only; out is 0), 5 wide by wgmma (a round one group of 16
 // k-steps), 6 wide by wgmma (two groups of 8), 7 wide by mma.sync, four
-// tiles a warp. tab: (256, 8) bf16, built by the wrapper for the mode.
-// block: a multiple of 32 (128 for modes 5, 6). grid <= 0: as many blocks
+// tiles a warp, 8 chain on the nibble one-hot, 9 the same with
+// accumulate. tab: (256, 8) bf16 for modes 0-7, (16, 16) for 8 and 9,
+// built by the wrapper for the mode. block: a multiple of 32 (128 for
+// modes 5, 6; at most 256 for 8 and 9). grid <= 0: as many blocks
 // as the card holds at once, capped at the work.
 int thc_probe_mma_lut(int device, const void* x, long long n, const void* tab, int rounds,
                       int mode, int block, int grid, void* out, void* stream) {
   const cudaError_t set = cudaSetDevice(device);
   if (set != cudaSuccess) return (int)set;
   const void* kernel = kernel_of(mode);
-  if (kernel == nullptr || ((mode == 5 || mode == 6) ? block != 128 : block % 32 != 0))
+  if (kernel == nullptr || ((mode == 5 || mode == 6) ? block != 128 : block % 32 != 0) ||
+      (mode >= 8 && block > 256))
     return (int)cudaErrorInvalidValue;
   if (grid <= 0) {
     int per_sm = 0, sms = 0;

@@ -5,8 +5,16 @@ the counterpart of the MXU probes: P6 ``scripts/prof/prof_mxu_lut.py``'s
 
 * :func:`lut_wide_mma` computes :func:`.lut.lut_wide` (a (256, 8) bf16
   table of the pattern's four bytes, the length and three zero columns);
-* :func:`lut_chain_mma` computes :func:`.lut.lut_chain` (every column the
-  table's low byte).
+* :func:`lut_chain_mma` computes :func:`.lut.lut_chain`, by the kernel
+  ``form`` (``CHAIN_FORMS``): ``sync`` the first design (a (256, 8) table,
+  every column the table's low byte, 16 dependent k-steps a round), and
+  ``nibble`` (the default) the one-hot factored over the low nibble: the
+  table as a 16 x 16 B (:func:`nibble_table`), two independent
+  ``mma.sync`` a tile-round, then the row's column picked by the high
+  nibble: a third product, in fp16, of the columns masked by the high
+  nibble's one-hot with a B of ones, which leaves the entry in every
+  thread of the row's group, four tiles a warp.
+  :func:`lut_chain_mma_nibble_plain` repeats its arithmetic.
 
 The kernels multiply a bf16 one-hot by the table with f32 accumulation;
 integers <= 255 are exact, so the output equals the lookup kernels' bit
@@ -35,10 +43,10 @@ share a branch-free epilogue; :func:`lut_wide_mma_bytes_plain` repeats
 their arithmetic. ``NEW_MODE`` is the fastest of the three on the card,
 ``sync4`` (PERF.md section 6).
 
-``python -m tpu_huffman_torch.prof.mma_lut`` checks every mode on the card
-against its plain version and ``lut_wide``/``lut_chain`` at the scripts'
-shapes and prints ns per lookup at one wave of the card (2048 threads on
-every SM), with each mode's registers and blocks an SM.
+``python -m tpu_huffman_torch.prof.mma_lut`` checks every mode and form on
+the card against its plain version and ``lut_wide``/``lut_chain`` at the
+scripts' shapes and prints ns per lookup at one wave of the card (2048
+threads on every SM), with each kernel's registers and blocks an SM.
 """
 
 from __future__ import annotations
@@ -77,7 +85,12 @@ OLD_MODE = "sync"
 NEW_MODE = "sync4"
 SPLIT_MODES = ("mma_only", "build_only")
 MAGIC_BITS = 0x4B400000  # float bits of 1.5 * 2^23, the new modes' accumulator start
-launches = {"lut_wide_mma": 0, "lut_chain_mma": 0}
+CHAIN_FORMS = ("sync", "nibble")
+OLD_FORM = "sync"
+NEW_FORM = "nibble"
+# "lut_chain_mma" counts the sync form's launches, "lut_chain_mma_nibble"
+# the nibble form's
+launches = {"lut_wide_mma": 0, "lut_chain_mma": 0, "lut_chain_mma_nibble": 0}
 
 
 def wide_table(p32: torch.Tensor, lens: torch.Tensor) -> torch.Tensor:
@@ -94,10 +107,25 @@ def chain_table(table: torch.Tensor) -> torch.Tensor:
     return (table.to(torch.int64) & 255).to(torch.float32)[:, None].expand(256, 8).contiguous()
 
 
+def nibble_table(table: torch.Tensor) -> torch.Tensor:
+    """The nibble form's B, (16, 16) bfloat16: ``B[lo][hi] = T[16 hi + lo]
+    & 255`` (exact in bf16)."""
+    return (table.to(torch.int64) & 255).reshape(16, 16).t().contiguous().to(torch.bfloat16)
+
+
+def chain_mode(form: str, accumulate: bool) -> int:
+    """The C mode id of a chain form: ``sync`` 1 or 2, ``nibble`` 8 or 9
+    (the second with accumulate)."""
+    if form not in CHAIN_FORMS:
+        raise ValueError(f"form must be one of {CHAIN_FORMS}")
+    return (1 if form == OLD_FORM else 8) + int(accumulate)
+
+
 def _launch(x: torch.Tensor, tab: torch.Tensor, rounds: int, mode: int, name: str,
             block: int = THREADS):
-    """The kernel alone, on a (256, 8) bf16 table already on the card.
-    Modes 0-4 get one thread an element, capped at a wave; the others fill
+    """The kernel alone, on its mode's bf16 table already on the card
+    ((256, 8), or (16, 16) for the nibble form). Modes 0-4 get one thread
+    an element, capped at a wave; the others fill
     the card once (grid 0)."""
     out = torch.empty_like(x)
     n = x.numel()
@@ -111,11 +139,12 @@ def _launch(x: torch.Tensor, tab: torch.Tensor, rounds: int, mode: int, name: st
     return out
 
 
-def kernel_shape(mode: str, dev: torch.device) -> dict:
-    """A wide mode's registers a thread and blocks an SM (the CUDA
-    occupancy calculator on ptxas's allocation): {"registers", "block",
-    "blocks_per_sm", "threads_per_sm"}."""
-    mid, block = WIDE_MODES[mode]
+def kernel_shape(mode: str | int, dev: torch.device) -> dict:
+    """A kernel's registers a thread and blocks an SM (the CUDA occupancy
+    calculator on ptxas's allocation), for a wide mode by name or a C mode
+    id (:func:`chain_mode`), at blocks of THREADS for the latter:
+    {"registers", "block", "blocks_per_sm", "threads_per_sm"}."""
+    mid, block = WIDE_MODES[mode] if isinstance(mode, str) else (mode, THREADS)
     lib = _build.load()
     regs = lib.thc_probe_mma_registers(dev.index or 0, mid)
     per_sm = lib.thc_probe_mma_occupancy(dev.index or 0, mid, block)
@@ -243,23 +272,67 @@ def split_plain(x0: torch.Tensor, p32: torch.Tensor, lens: torch.Tensor, rounds:
 
 
 def lut_chain_mma(x: torch.Tensor, table: torch.Tensor, rounds: int,
-                  accumulate: bool = False) -> torch.Tensor:
-    """:func:`.lut.lut_chain` by one-hot products on the tensor cores."""
+                  accumulate: bool = False, form: str = NEW_FORM) -> torch.Tensor:
+    """:func:`.lut.lut_chain` by one-hot products on the tensor cores, by
+    the kernel ``form`` (``CHAIN_FORMS``)."""
     _check(x, table)
+    mode = chain_mode(form, accumulate)
     if not is_cuda(x):
-        return lut_chain_mma_plain(x, table, rounds, accumulate)
-    return _launch(x, chain_table(table).to(torch.bfloat16), rounds, 2 if accumulate else 1,
-                   "lut_chain_mma")
+        return _chain_plain(form)(x, table, rounds, accumulate)
+    return _launch_chain(x, _chain_tab(table, form), rounds, mode)
+
+
+def _chain_tab(table: torch.Tensor, form: str) -> torch.Tensor:
+    """A chain form's bf16 table as its kernel reads it."""
+    return (chain_table(table) if form == OLD_FORM else nibble_table(table)).to(torch.bfloat16)
+
+
+def _launch_chain(x: torch.Tensor, tab: torch.Tensor, rounds: int, mode: int) -> torch.Tensor:
+    return _launch(x, tab, rounds, mode,
+                   "lut_chain_mma" if mode <= 2 else "lut_chain_mma_nibble")
 
 
 def lut_chain_mma_plain(x: torch.Tensor, table: torch.Tensor, rounds: int,
                         accumulate: bool = False) -> torch.Tensor:
-    """Plain version of :func:`lut_chain_mma`."""
+    """Plain version of :func:`lut_chain_mma`'s ``sync`` form."""
     tab = chain_table(table)
     y = x.to(torch.int64).reshape(-1) & 255
     for r in range(rounds):
         y = (_onehot_rows(y, tab)[:, 0] + (r if accumulate else 0)) & 255
     return y.to(torch.int32).reshape(x.shape)
+
+
+def _nibble_lookup(y: torch.Tensor, b: torch.Tensor, add: int) -> torch.Tensor:
+    """One round of the nibble form on int64 indexes < 256, ``add`` the
+    round's r & 255 (0 without accumulate), in float32, which holds every
+    step exactly: the one-hot of lo = y & 15 (1.0) times B, times the
+    one-hot of hi = y >> 4, summed over the row with 1024 + add, whose fp16
+    bits' low byte is the entry + add."""
+    out = []
+    for i in range(0, y.numel(), PLAIN_ROWS):
+        yi = y[i:i + PLAIN_ROWS]
+        lo = F.one_hot(yi & 15, 16).to(torch.float32)
+        c = ((lo @ b) * F.one_hot(yi >> 4, 16)).sum(1) + (1024 + add)
+        out.append(c.to(torch.float16).view(torch.int16).to(torch.int64))
+    return (torch.cat(out) if out else y) & 255
+
+
+def lut_chain_mma_nibble_plain(x: torch.Tensor, table: torch.Tensor, rounds: int,
+                               accumulate: bool = False) -> torch.Tensor:
+    """Plain version of :func:`lut_chain_mma`'s ``nibble`` form, its
+    arithmetic round by round (:func:`_nibble_lookup`), r & 255 added with
+    ``accumulate``."""
+    b = nibble_table(table).to(torch.float32)
+    y = x.to(torch.int64).reshape(-1) & 255
+    for r in range(rounds):
+        y = _nibble_lookup(y, b, (r & 255) if accumulate else 0)
+    return y.to(torch.int32).reshape(x.shape)
+
+
+def _chain_plain(form: str):
+    """The plain version of a chain form, as f(x, table, rounds,
+    accumulate)."""
+    return lut_chain_mma_plain if form == OLD_FORM else lut_chain_mma_nibble_plain
 
 
 def _wide_plain(mode: str):
@@ -273,18 +346,25 @@ def _split(mode, x0, p32, lens, rounds):
     return split_plain(x0, p32, lens, rounds, mode)
 
 
+CHAIN_CASES = ("P1", "P3")  # P1 accumulates on a byte table, P3 masks a 32-bit one
+
+
 def run(dev: torch.device | None = None) -> dict:
     """Check every kernel against its plain version, and the lookups
-    against lut_wide / lut_chain, at P6's and P1's shapes; then time them
-    at one wave of 270,336 elements, each launch timed also held against
-    its plain version there. The timed launches take their bf16 tables
-    built once, so the times are the mma kernel alone. The wide modes are
-    timed in one kernel_ms call, ``sync`` (the design before) first and
-    again last. Returns {"wide": the NEW_MODE's {"ms", "was_ms",
-    "plain_ms", "ns_per_lookup"} and "modes": {mode: {"ms",
-    "ns_per_lookup", "registers", "block", "blocks_per_sm",
-    "threads_per_sm"}}, "chain": {...}, "n": elements timed, "fill": the
-    timed tensors, "max_abs_err": {kernel: over every comparison}}."""
+    against lut_wide / lut_chain, at P6's, P1's and P3's shapes; then time
+    them at one wave of 270,336 elements, each launch timed also held
+    against its plain version there. The timed launches take their bf16
+    tables built once, so the times are the mma kernel alone. The wide
+    modes are timed in one kernel_ms call, ``sync`` (the design before)
+    first and again last, and so are the chain forms of each case.
+    Returns {"wide": the NEW_MODE's {"ms", "was_ms", "plain_ms",
+    "ns_per_lookup"} and "modes": {mode: {"ms", "ns_per_lookup",
+    "registers", "block", "blocks_per_sm", "threads_per_sm"}}, "chain":
+    P1's NEW_FORM {"ms", "was_ms", "was_again_ms", "ns_per_lookup",
+    "plain_ms", "was_plain_ms"} and "cases": {case: {form: {"ms",
+    "ns_per_lookup", registers...}, "sync again": ms}},
+    "n": elements timed, "fill": the timed tensors, "max_abs_err":
+    {kernel: over every comparison}}."""
     dev = on_card(dev)
     p32_np, len_np, x_np = _lut.p6_inputs()
     p32 = torch.from_numpy(p32_np.view(np.int32)).to(dev)
@@ -295,7 +375,7 @@ def run(dev: torch.device | None = None) -> dict:
                 want)
     check_equal("the new modes' plain vs lut_wide",
                 lut_wide_mma_bytes_plain(x0, p32, lens, _lut.R_WIDE), want)
-    err = {"lut_wide_mma": 0}
+    err = {"lut_wide_mma": 0, "lut_chain_mma": 0}
     for mode in WIDE_MODES:
         got = lut_wide_mma(x0, p32, lens, _lut.R_WIDE, mode)
         err["lut_wide_mma"] = max(err["lut_wide_mma"], check_equal(
@@ -303,23 +383,23 @@ def run(dev: torch.device | None = None) -> dict:
             _wide_plain(mode)(x0, p32, lens, _lut.R_WIDE)))
         if mode not in SPLIT_MODES:
             check_equal(f"lut_wide_mma {mode} vs lut_wide", got, want)
-    table_np, x1_np = _lut.p1_inputs()
-    table = torch.from_numpy(table_np).to(dev)
-    x1 = torch.from_numpy(x1_np).to(dev)
-    got = lut_chain_mma(x1, table, _lut.R_CHAIN, True)
-    err["lut_chain_mma"] = max(
-        check_equal("lut_chain_mma vs plain", got,
-                    lut_chain_mma_plain(x1, table, _lut.R_CHAIN, True)),
-        check_equal("lut_chain_mma vs lut_chain", got,
-                    _lut.lut_chain(x1, table, _lut.R_CHAIN, True)))
+    cases = {name: c for name, c in _lut.chain_cases(dev).items() if name in CHAIN_CASES}
+    for name, (x, table, acc) in cases.items():
+        want = _lut.lut_chain(x, table, _lut.R_CHAIN, acc)
+        for form in CHAIN_FORMS:
+            got = lut_chain_mma(x, table, _lut.R_CHAIN, acc, form)
+            err["lut_chain_mma"] = max(
+                err["lut_chain_mma"],
+                check_equal(f"lut_chain_mma {name} {form} vs plain", got,
+                            _chain_plain(form)(x, table, _lut.R_CHAIN, acc)),
+                check_equal(f"lut_chain_mma {name} {form} vs lut_chain", got, want))
 
-    # one wave: the plain version and the library product build the
-    # one-hot in device memory, 2 KB a lookup
+    # one wave: the plain versions and the library product build the
+    # one-hot in device memory, 2 KB a lookup (128 B for nibble)
     n = one_wave(dev)
-    xw, xc = tile(x0, n), tile(x1, n)
-    res = {"n": n, "fill": {"P6": (xw, p32, lens), "P1": (xc, table)}}
+    xw = tile(x0, n)
+    res = {"n": n, "fill": {"P6": (xw, p32, lens)}}
     tab_w = wide_table(p32, lens).to(torch.bfloat16)
-    tab_c = chain_table(table).to(torch.bfloat16)
     # (the script's rounds, another round count for the slope)
     rw = (_lut.R_WIDE, _lut.R_WIDE // 4)
     rc = (_lut.R_CHAIN, 4 * _lut.R_CHAIN)
@@ -329,25 +409,15 @@ def run(dev: torch.device | None = None) -> dict:
         for k in rw:
             label = ("wide", mode, k) if ("wide", mode, k) not in calls else ("wide", mode, k, 2)
             calls[label] = functools.partial(_launch_wide, xw, tab_w, k, mode)
-    for k in rc:
-        calls["chain", k] = functools.partial(_launch, xc, tab_c, k, 2, "lut_chain_mma")
     plains = {}
 
     def want_of(label):
-        if label[0] == "chain":
-            key = ("chain", label[1])
-            fn = functools.partial(lut_chain_mma_plain, xc, table, label[1], True)
-        else:
-            kind = _wide_plain(label[1])
-            key = (kind, label[2])
-            fn = functools.partial(kind, xw, p32, lens, label[2])
-        if key not in plains:
-            plains[key] = fn()
-        return plains[key]
+        kind = _wide_plain(label[1])
+        if (kind, label[2]) not in plains:
+            plains[kind, label[2]] = kind(xw, p32, lens, label[2])
+        return plains[kind, label[2]]
 
-    for name in ("wide", "chain"):
-        err[f"lut_{name}_mma"] = max(err[f"lut_{name}_mma"], check_calls(
-            f"lut_{name}_mma", {lb: fn for lb, fn in calls.items() if lb[0] == name}, want_of))
+    err["lut_wide_mma"] = max(err["lut_wide_mma"], check_calls("lut_wide_mma", calls, want_of))
     del plains
     t = kernel_ms(calls)
     modes = {}
@@ -362,12 +432,57 @@ def run(dev: torch.device | None = None) -> dict:
                        lut_wide_mma_bytes_plain, xw, p32, lens, rw[0])),
                    "was_plain_ms": median_ms(functools.partial(
                        lut_wide_mma_plain, xw, p32, lens, rw[0]))}
-    hi, lo = t["chain", rc[0]], t["chain", rc[1]]
-    res["chain"] = {"ms": hi, "ns_per_lookup": slope_ns(lo, hi, rc[0] - rc[1]) / n,
-                    "plain_ms": median_ms(functools.partial(
-                        lut_chain_mma_plain, xc, table, rc[0], True))}
+
+    # the chain forms of each case in one kernel_ms call, sync first and
+    # again last
+    res["chain"] = {"cases": {}}
+    for name, (x, table, acc) in cases.items():
+        xc = tile(x, n)
+        res["fill"][name] = (xc, table, acc)
+        kinds = (OLD_FORM, NEW_FORM, "sync again")
+        calls = {}
+        for label in kinds:
+            form = OLD_FORM if label == "sync again" else label
+            tab = _chain_tab(table, form)
+            for k in rc:
+                calls[label, k] = functools.partial(
+                    _launch_chain, xc, tab, k, chain_mode(form, acc))
+        # each plain version once a round count, held against lut_chain
+        plains = {}
+        for k in rc:
+            want = _lut.lut_chain(xc, table, k, acc)
+            for form in CHAIN_FORMS:
+                plains[form, k] = _chain_plain(form)(xc, table, k, acc)
+                check_equal(f"lut_chain_mma {name} {form} plain vs lut_chain at {k} rounds",
+                            plains[form, k], want)
+        err["lut_chain_mma"] = max(err["lut_chain_mma"], check_calls(
+            f"lut_chain_mma {name}", calls,
+            lambda lb: plains[OLD_FORM if lb[0] == "sync again" else lb[0], lb[1]]))
+        del plains
+        t = kernel_ms(calls)
+        out = {}
+        for form in CHAIN_FORMS:
+            lo, hi = t[form, rc[0]], t[form, rc[1]]
+            out[form] = {"ms": lo, "ns_per_lookup": slope_ns(lo, hi, rc[1] - rc[0]) / n,
+                         **kernel_shape(chain_mode(form, acc), dev)}
+        out["sync again"] = t["sync again", rc[0]]
+        res["chain"]["cases"][name] = out
+    p1 = res["chain"]["cases"]["P1"]
+    xc, table, acc = res["fill"]["P1"]
+    res["chain"].update({
+        "ms": p1[NEW_FORM]["ms"], "ns_per_lookup": p1[NEW_FORM]["ns_per_lookup"],
+        "was_ms": p1["sync"]["ms"], "was_again_ms": p1["sync again"],
+        "plain_ms": median_ms(functools.partial(
+            lut_chain_mma_nibble_plain, xc, table, rc[0], acc)),
+        "was_plain_ms": median_ms(functools.partial(
+            lut_chain_mma_plain, xc, table, rc[0], acc))})
     res["max_abs_err"] = err
     return res
+
+
+def _shape_text(r: dict) -> str:
+    return (f"{r['registers']} registers, {r['blocks_per_sm']} blocks of {r['block']} an SM "
+            f"({r['threads_per_sm']} threads)")
 
 
 def main() -> None:
@@ -377,17 +492,23 @@ def main() -> None:
     w = res["wide"]
     for mode, r in w["modes"].items():
         print(f"lut_wide_mma {mode:10s}: {r['ms']:.4f} ms at {res['n']} elements x "
-              f"{_lut.R_WIDE} rounds, {r['ns_per_lookup']:.5f} ns/lookup; {r['registers']} "
-              f"registers, {r['blocks_per_sm']} blocks of {r['block']} an SM "
-              f"({r['threads_per_sm']} threads)"
+              f"{_lut.R_WIDE} rounds, {r['ns_per_lookup']:.5f} ns/lookup; {_shape_text(r)}"
               + (f"; again after the others {r['again_ms']:.4f} ms" if "again_ms" in r else ""))
     print(f"lut_wide_mma: {NEW_MODE} {w['ms']:.4f} ms, was ({OLD_MODE}) {w['was_ms']:.4f} ms; "
           f"plain {w['plain_ms']:.3f} ms ({OLD_MODE}'s {w['was_plain_ms']:.3f}); every mode equal "
           f"to its plain version, and the lookups to lut_wide, at the script's shape")
-    r = res["chain"]
-    print(f"lut_chain_mma: {r['ms']:.4f} ms at {res['n']} elements x {_lut.R_CHAIN} rounds, "
-          f"{r['ns_per_lookup']:.5f} ns/lookup (plain {r['plain_ms']:.3f} ms); equal to "
-          f"lut_chain and to plain at the script's shape")
+    c = res["chain"]
+    for name, kinds in c["cases"].items():
+        for label, r in kinds.items():
+            if label != "sync again":
+                print(f"lut_chain_mma {name} {label:6s}: {r['ms']:.4f} ms at {res['n']} "
+                      f"elements x {_lut.R_CHAIN} rounds, {r['ns_per_lookup']:.5f} ns/lookup; "
+                      f"{_shape_text(r)}")
+        print(f"lut_chain_mma {name} sync again after the others: {kinds['sync again']:.4f} ms")
+    print(f"lut_chain_mma: {NEW_FORM} {c['ms']:.4f} ms, was ({OLD_FORM}) {c['was_ms']:.4f} ms, "
+          f"again {c['was_again_ms']:.4f}; plain {c['plain_ms']:.3f} ms ({OLD_FORM}'s "
+          f"{c['was_plain_ms']:.3f}); every form equal to its plain version and to lut_chain "
+          f"at the scripts' shapes and at one wave")
 
 
 if __name__ == "__main__":

@@ -107,7 +107,13 @@ Phases (any failure raises and the script exits non-zero):
   7. the protocol on the card: a 256 KiB stream at 4 KiB chunks, the
      decoder's threshold lowered so that the fused bulk drains run;
      every call's result, overflow_bits, leftover_bits and state equal
-     those on device="cpu"; the stitch outcomes on the card printed;
+     those on device="cpu"; the stitch outcomes on the card printed; then
+     C4: capped encode_chunk calls with an unknown symbol before, at and
+     past the capacity cut (after a straddling code, in a run, behind
+     carries of 0 and 1 bit, at capacities 0, 1, 3 and 7, and a seeded
+     build_table table with holes at capacities 0-7), each call through
+     the fused path on the card equal to the C++ oracle's and the CPU's,
+     raises included, with encode_count launched on the card;
   8. C2: one uncapped encode_chunk of a stream just past 2^31 bits: no
      segmenting (one pack launch), bytes equal tt.encode's, tt.decode gives
      the input back; capped stream_decode walks from the first code start
@@ -891,6 +897,111 @@ def phase_protocol(torch, tt, table, counters, dev) -> None:
           f"encode, {len(card['feed'])} feed and {len(card['drain'])} drain calls equal the "
           f"CPU's (bytes, consumed, done, overflow_bits, leftover_bits, state); card "
           f"launches {launched}; stitch outcomes on the card {ends}")
+    c4 = phase_c4(tt, dev)
+    print(f"phase 7 C4 (capped encode_chunk, unknown symbol at the cut), {c4['cases']} cases "
+          f"on two tables with holes: {c4['calls']} calls through the fused path on {dev} "
+          f"({c4['raises']} raises) equal the oracle's and the CPU's (bytes, consumed, done, "
+          f"overflow_bits, raise index and symbol, state kept on a raise); encode_count "
+          f"launched {c4['encode_count']} times on the card")
+
+
+C4_SPEC = {65: 1, 66: 2, 67: 3, 68: 3}  # A B C D; Z (90) and every other byte have no code
+
+
+def c4_cases(tt) -> list:
+    """(name, table, setup calls, data, capacities): the calls where a
+    capped encode_chunk once raised and the oracle did not, the unknown
+    symbol at cut - 1, cut and cut + 1, after a code that straddles the cut
+    and in a run at the cut, behind carries of 0 and 1 bits at capacities 0,
+    1, 3 and 7, and a seeded build_table table with holes at capacities
+    drawn from 0-7 over 400 symbols."""
+    spec = tt.make_canonical(C4_SPEC)
+    dcdc = [(b"DCDC", 1)]  # leaves the carry (1, 1)
+    cases = [("AAAAAAAAZ", spec, [], b"AAAAAAAAZ", [1] * 4),
+             ("AAAAAAAAAZ", spec, [], b"AAAAAAAAAZ", [1] * 4),
+             ("ZA cap 0", spec, [], b"ZA", [0]),
+             ("AAAAAAAZ", spec, [], b"AAAAAAAZ", [1] * 4),
+             ("carry, cap 3", spec, dcdc, (b"ABCD" * 40 + b"Z" + b"A" * 10)[150:], [3] * 20),
+             ("carry, ZA cap 0", spec, dcdc, b"ZA", [0])]
+    for cap in (0, 1, 3, 7):
+        for carry in (0, 1):
+            before = 8 * cap - carry  # A (1 bit) symbols that end at the cut
+            for where, head in (("cut-1", b"A" * (before - 1)), ("cut", b"A" * before),
+                                ("cut+1", b"A" * (before + 1)),
+                                ("straddle", b"A" * (before - 1) + b"D"),
+                                ("run", b"A" * before + b"ZZZ")):
+                cases.append((f"{where}, carry {carry}, cap {cap}", spec, dcdc if carry else [],
+                              head + b"ZA" + b"BCD" * 3, [cap] * (1 if cap == 0 else 60)))
+    rng = np.random.default_rng(16)
+    corpus = rng.choice(np.arange(40, 104), size=4000).astype(np.uint8)
+    built = tt.build_table(corpus.tobytes())
+    data = rng.integers(36, 108, size=400, dtype=np.uint8).tobytes()
+    cases.append(("build_table, caps 0-7", built, [], data,
+                  np.random.default_rng(16).integers(0, 8, size=10_000).tolist()))
+    return cases
+
+
+def c4_stream(tt, enc, table, setup, data: bytes, caps) -> list:
+    """Each call's (bytes, consumed, done, overflow_bits) through the
+    capacity protocol, None for a raise; after a raise the encoder is reset
+    and goes on past the unknown symbol. ``enc`` is the port's
+    HuffmanEncoder or the oracle's (whose carry goes out with its error).
+    A port's raise must name the first unknown symbol and keep the state."""
+    for pending, cap in setup:
+        enc.encode_chunk(pending, cap)
+    out, pending = [], data
+    for cap in caps:
+        before = enc.state() if isinstance(enc, tt.HuffmanEncoder) else None
+        try:
+            r = enc.encode_chunk(pending, cap)
+        except tt.UnknownSymbolError as exc:
+            bad = int(np.flatnonzero(table.lengths[np.frombuffer(pending, np.uint8)] == 0)[0])
+            if before is not None and ((exc.index, exc.symbol) != (bad, pending[bad])
+                                       or enc.state() != before):
+                raise AssertionError(f"C4: raise at {exc.index} ({exc.symbol}), first unknown "
+                                     f"symbol {bad}, state {enc.state()} was {before}")
+            out.append(None)
+            enc.reset()
+            pending = pending[bad + 1:]
+            continue
+        r = (r.data, r.consumed, r.done) if isinstance(r, tt.EncodeResult) else tuple(r)
+        out.append(r + (enc.overflow_bits,))
+        pending = pending[r[1]:]
+        if r[2]:
+            break
+    return out
+
+
+def phase_c4(tt, dev) -> dict:
+    """C4 on the card: every case of :func:`c4_cases` through the fused
+    encode_chunk on ``dev``, call by call against the oracle binding and
+    the CPU's plain run. Fails on a difference, or if encode_count did not
+    launch on the card for these calls."""
+    from tpu_huffman_torch import oracle
+    from tpu_huffman_torch.ops import pack_encode
+
+    stats = {"cases": 0, "calls": 0, "raises": 0}
+    runs = []
+    for name, table, setup, data, caps in c4_cases(tt):
+        otable = oracle.OracleTable(table)
+        want = c4_stream(tt, oracle.OracleEncoder(otable), table, setup, data, caps)
+        cpu = c4_stream(tt, tt.HuffmanEncoder(table, device="cpu"), table, setup, data, caps)
+        runs.append((name, table, setup, data, caps, want, cpu))
+    pack_encode.launches["encode_count"] = 0
+    for name, table, setup, data, caps, want, cpu in runs:
+        card = c4_stream(tt, tt.HuffmanEncoder(table, device=dev), table, setup, data, caps)
+        if not card == cpu == want:
+            bad = next(i for i, calls in enumerate(itertools.zip_longest(card, cpu, want))
+                       if not calls[0] == calls[1] == calls[2])
+            raise AssertionError(f"C4 case {name}: call {bad} differs: card {card[bad:][:1]}, "
+                                 f"CPU {cpu[bad:][:1]}, oracle {want[bad:][:1]}")
+        stats["cases"] += 1
+        stats["calls"] += len(card)
+        stats["raises"] += card.count(None)
+    stats["encode_count"] = pack_encode.launches["encode_count"]
+    if not stats["encode_count"]:
+        raise AssertionError("C4: encode_count did not launch on the card")
+    return stats
 
 
 def phase_c2(torch, tt, table, counters, dev, limit_bits: int = 1 << 31) -> None:

@@ -127,28 +127,43 @@ def test_encoder_input_chunking_pads_each_chunk(tables):
 
 
 def test_encoder_unknown_symbol_mid_stream():
-    """The first unknown symbol of the call's (truncated) input raises with
-    its index and value, before any output and with the carry untouched."""
+    """The first unknown symbol raises with its index and value, before any
+    output and with the carry untouched, where the oracle raises: uncapped
+    at once, capped only in the call where it starts before the cut. At
+    capacity 3 the oracle returns two more chunks after the call that the
+    JAX package raises in; the port follows the oracle, and is held against
+    the JAX package where the two agree (None and 100)."""
     spec = {65: 1, 66: 2, 67: 3, 68: 3}
     ref, t = th.make_canonical(spec), tt.make_canonical(spec)
     data = b"ABCD" * 40 + b"Z" + b"A" * 10
     for cap in (None, 3, 100):
         ours, theirs = tt.HuffmanEncoder(t, device=CPU), th.HuffmanEncoder(ref)
-        pending = data
+        orc = oracle.OracleEncoder(oracle.OracleTable(ref))
+        pending, calls = data, []
         while True:
+            before = ours.state()
             try:
                 r = ours.encode_chunk(pending, cap)
             except tt.UnknownSymbolError as exc:
-                with pytest.raises(th.UnknownSymbolError) as jexc:
-                    theirs.encode_chunk(pending, cap)
-                assert (exc.index, exc.symbol) == (jexc.value.index, jexc.value.symbol)
-                assert exc.symbol == ord("Z")
-                assert ours.overflow_bits == theirs.overflow_bits
+                assert (exc.index, exc.symbol) == (pending.index(b"Z"), ord("Z"))
+                assert ours.state() == before
+                if cap is not None:
+                    with pytest.raises(th.UnknownSymbolError):
+                        orc.encode_chunk(pending, cap)
+                if cap != 3:
+                    with pytest.raises(th.UnknownSymbolError) as jexc:
+                        theirs.encode_chunk(pending, cap)
+                    assert (exc.index, exc.symbol) == (jexc.value.index, jexc.value.symbol)
                 break
-            j = theirs.encode_chunk(pending, cap)
-            assert (r.data, r.consumed, r.done) == (j.data, j.consumed, j.done)
+            calls.append((r.data.hex(), r.consumed))
+            assert (r.data, r.consumed, r.done) == orc.encode_chunk(pending, cap)
+            assert ours.overflow_bits == orc.overflow_bits
             assert not r.done
             pending = pending[r.consumed:]
+        assert len(calls) == {None: 0, 3: 15, 100: 0}[cap]
+        if cap == 3:  # the two calls whose Z starts at or past the cut
+            assert calls[13:] == [("eb75ba", 11), ("dd6eb7", 10)]
+            assert pending[:1] == b"Z"
 
 
 def test_encoder_state_across_packages(tables):

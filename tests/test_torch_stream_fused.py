@@ -7,8 +7,11 @@ and the device-scalar tail walk, one download).
 Every call is held against the JAX package's ``HuffmanEncoder`` and
 ``HuffmanDecoder`` (which run their classic paths on the CPU) and the C++
 oracle, chunk by chunk: bytes, ``consumed``, ``done``, carries,
-``leftover_bits``, ``state()`` and errors, all exact. The decoder's bulk
-path runs here with ``BULK_DECODE_THRESHOLD`` and ``SEG_WORDS`` lowered, as
+``leftover_bits``, ``state()`` and errors, all exact. Where a capped
+``encode_chunk`` meets an unknown symbol at or past its cut, the JAX
+encoder raises and the oracle does not: there the port is held against
+the oracle alone. The decoder's bulk path runs here with
+``BULK_DECODE_THRESHOLD`` and ``SEG_WORDS`` lowered, as
 tests/test_torch_stream_words.py runs the classic drains. The
 device-scalar ``stream_decode`` form is held against the by-value form.
 """
@@ -145,28 +148,186 @@ def test_fused_encode_chunk_carry_then_eos():
 
 
 def test_fused_encode_chunk_unknown_symbol_keeps_state():
-    """An unknown symbol raises with its index and value before any output,
-    on the fused path and on the host's (a budget of 0 that the carry
-    spends), and leaves the carry as it was: the next call goes on as the
-    JAX encoder's does."""
+    """Where the oracle raises (uncapped, or capped with the unknown symbol
+    starting before the cut), the fused path raises with its index and
+    value before any output and leaves the carry as it was, as the JAX
+    encoder does. Where the symbol starts at or past the cut (capacity 3
+    here, and 0 on the host's path, whose budget the carry spends) the call
+    returns the oracle's chunk and carry, not the JAX encoder's error. The
+    next call goes on as the JAX encoder's does from the same state."""
     spec = {65: 1, 66: 2, 67: 3, 68: 3}
     ref, t = th.make_canonical(spec), tt.make_canonical(spec)
     data = b"ABCD" * 40 + b"Z" + b"A" * 10
+    returns = {3: (bytes.fromhex("eeb75b"), 10, False), 0: (b"", 0, False)}
     for cap, pending in ((None, data[150:]), (3, data[150:]), (7, data[150:]),
                          (100, data[150:]), (0, b"ZA")):
         ours, theirs = tt.HuffmanEncoder(t, device=CPU), th.HuffmanEncoder(ref)
+        orc = oracle.OracleEncoder(oracle.OracleTable(ref))
         r, j = ours.encode_chunk(b"DCDC", 1), theirs.encode_chunk(b"DCDC", 1)
-        assert (r.data, r.consumed, r.done) == (j.data, j.consumed, j.done)
+        assert (r.data, r.consumed, r.done) == (j.data, j.consumed, j.done) == (
+            orc.encode_chunk(b"DCDC", 1))
         before = ours.state()
-        assert before == theirs.state() and before["carry_len"]
-        with pytest.raises(tt.UnknownSymbolError) as exc:
-            ours.encode_chunk(pending, cap)
-        with pytest.raises(th.UnknownSymbolError) as jexc:
-            theirs.encode_chunk(pending, cap)
-        assert (exc.value.index, exc.value.symbol) == (jexc.value.index, jexc.value.symbol)
-        assert ours.state() == theirs.state() == before
+        assert before == theirs.state() and ours.overflow_bits == orc.overflow_bits == (1, 1)
+        if cap in returns:
+            r = ours.encode_chunk(pending, cap)
+            assert (r.data, r.consumed, r.done) == returns[cap] == orc.encode_chunk(pending, cap)
+            assert ours.overflow_bits == orc.overflow_bits == (1, 1)
+        else:
+            with pytest.raises(tt.UnknownSymbolError) as exc:
+                ours.encode_chunk(pending, cap)
+            with pytest.raises(th.UnknownSymbolError) as jexc:
+                theirs.encode_chunk(pending, cap)
+            assert (exc.value.index, exc.value.symbol) == (jexc.value.index, jexc.value.symbol)
+            assert ours.state() == theirs.state() == before
+        theirs.load_state(ours.state())
         r, j = ours.encode_chunk(b"ABBA", None), theirs.encode_chunk(b"ABBA", None)
         assert (r.data, r.consumed, r.done) == (j.data, j.consumed, j.done)
+
+
+_C4_SPEC = {65: 1, 66: 2, 67: 3, 68: 3}  # A B C D; Z (90) has no code
+_DCDC = [(b"DCDC", 1)]  # leaves the carry (1, 1)
+
+
+def _c4_case(cap, carry, where):
+    """(setup calls, data) whose first Z starts where ``where`` says, relative
+    to the cut of a call at ``cap`` bytes after a carry of ``carry`` bits."""
+    setup = _DCDC if carry else []
+    before = 8 * cap - carry  # A (1 bit) symbols that end at the cut
+    head = {"cut-1": b"A" * (before - 1), "cut": b"A" * before, "cut+1": b"A" * (before + 1),
+            "straddle": b"A" * (before - 1) + b"D",
+            "run": b"A" * before + b"ZZZ"}[where]
+    return setup, head + b"ZA" + b"BCD" * 3
+
+
+def _c4_stream(t, ref, setup, data, cap, seed=None):
+    """The fused call, ``_encode_chunk_classic`` and the oracle through the
+    capacity protocol in step: every chunk's (data, consumed, done,
+    overflow_bits) equal, and a raise exactly where the oracle raises, with
+    the first unknown symbol's index and value. After a raise all three
+    restart from a reset past the symbol (the oracle's carry went out with
+    its error). ``seed`` draws each call's capacity from 0-7. Returns each
+    call's (data, consumed, done, overflow_bits), None for a raise."""
+    ours, classic = tt.HuffmanEncoder(t, device=CPU), tt.HuffmanEncoder(t, device=CPU)
+    orc = oracle.OracleEncoder(oracle.OracleTable(ref))
+    rng = np.random.default_rng(seed)
+    for pending, c in setup:
+        r = ours.encode_chunk(pending, c)
+        assert (r.data, r.consumed, r.done) == orc.encode_chunk(pending, c)
+        classic.load_state(ours.state())
+    outcomes, pending = [], data
+    for _ in range(10_000):
+        c = cap if seed is None else int(rng.integers(0, 8))
+        before = ours.state()
+        try:
+            want = orc.encode_chunk(pending, c) + (orc.overflow_bits,)
+        except th.UnknownSymbolError:
+            want = None
+        got = []
+        for enc, call in ((ours, ours.encode_chunk), (classic, classic._encode_chunk_classic)):
+            try:
+                r = call(pending, c)
+                got.append((r.data, r.consumed, r.done, enc.overflow_bits))
+            except tt.UnknownSymbolError as exc:
+                bad = np.flatnonzero(t.lengths[np.frombuffer(pending, np.uint8)] == 0)[0]
+                assert (exc.index, exc.symbol) == (bad, pending[bad])
+                assert enc.state() == before
+                got.append(None)
+        assert got == [want, want]
+        outcomes.append(want)
+        if want is None:
+            for enc in (ours, classic, orc):
+                enc.reset()
+            pending = pending[bad + 1:]
+            continue
+        pending = pending[want[1]:]
+        if want[2] or (c == 0 and seed is None):
+            return outcomes
+    raise AssertionError("encoder did not finish")
+
+
+@pytest.mark.parametrize("where", ["cut-1", "cut", "cut+1", "straddle", "run"])
+@pytest.mark.parametrize("carry", [0, 1])
+@pytest.mark.parametrize("cap", [0, 1, 3, 7])
+def test_encode_chunk_unknown_symbol_at_cut_matches_oracle(cap, carry, where, monkeypatch):
+    """A capped call raises if and only if its first unknown symbol starts
+    before the cut (the oracle's rule); otherwise it returns the chunk
+    before the cut with the oracle's consumed, done and carry. The fused
+    call, the classic form and the host's path (capacity 0) agree with the
+    oracle call by call, through the rest of the stream."""
+    ref, t = th.make_canonical(_C4_SPEC), tt.make_canonical(_C4_SPEC)
+    setup, data = _c4_case(cap, carry, where)
+    host = []
+    real = tstream.HuffmanEncoder._encode_host
+    monkeypatch.setattr(tstream.HuffmanEncoder, "_encode_host",
+                        lambda self, *a: host.append(1) or real(self, *a))
+    outcomes = _c4_stream(t, ref, setup, data, cap)
+    if cap == 0:
+        assert host and outcomes == [(b"", 0, False, (1, 1) if carry else (0, 0))]
+        return
+    assert (outcomes[0] is None) == (where == "cut-1")
+    assert outcomes.count(None) == data.count(b"Z")
+    if where == "cut" and not carry:
+        assert outcomes[0] == (b"\x00" * cap, 8 * cap, False, (0, 0))
+
+
+_REPRO = [([], b"AAAAAAAAZ", 1, (b"\x00", 8, False, (0, 0))),
+          ([], b"AAAAAAAAAZ", 1, (b"\x00", 8, False, (0, 0))),
+          ([], b"ZA", 0, (b"", 0, False, (0, 0))),
+          ([], b"AAAAAAAZ", 1, None),
+          (_DCDC, (b"ABCD" * 40 + b"Z" + b"A" * 10)[150:], 3,
+           (bytes.fromhex("eeb75b"), 10, False, (1, 1))),
+          (_DCDC, b"ZA", 0, (b"", 0, False, (1, 1)))]
+
+
+@pytest.mark.parametrize("setup, data, cap, first", _REPRO)
+def test_encode_chunk_unknown_symbol_repro_cases(setup, data, cap, first):
+    """The calls where the port raised and the oracle did not, and one where
+    both raise: an input that ends in the unknown symbol at the cut is not
+    done, and consumes the codes before it only."""
+    ref, t = th.make_canonical(_C4_SPEC), tt.make_canonical(_C4_SPEC)
+    assert _c4_stream(t, ref, setup, data, cap)[0] == first
+
+
+_T = tstream._TILE
+_TILE_EDGES = {  # (data, capacity, the first call raises)
+    "first of tile 1 at the cut": (b"A" * _T + b"Z" + b"A" * 50, _T // 8, False),
+    "first of tile 1 before the cut": (b"A" * _T + b"Z" + b"A" * 50, _T // 8 + 1, True),
+    "last of tile 0 before the cut": (b"A" * (_T - 1) + b"Z" + b"A" * 50, _T // 8, True),
+    "in tile 0, which ends at the cut": (b"A" * 99 + b"BZ" + b"A" * (_T - 101) + b"A" * 50,
+                                         _T // 8, True),
+    # 4 D and T - 12 A fill tile 0's bits to the cut, and 8 Z end it; staging
+    # (8 * capacity + 2 symbols) reaches 2 Z into tile 1
+    "run across tiles at the cut": (b"D" * 4 + b"A" * (_T - 12) + b"Z" * 16 + b"A" * 50,
+                                    _T // 8, False),
+    "straddle in tile 0, Z first of tile 1": (b"A" * (_T - 1) + b"DZ" + b"A" * 50, _T // 8,
+                                              False),
+}
+
+
+@pytest.mark.parametrize("case", list(_TILE_EDGES))
+def test_encode_chunk_unknown_symbol_tile_edges_matches_oracle(case):
+    """The unknown symbol's tile differs from the cut's (before and after
+    it), or a run of them crosses a tile boundary at the cut: the raise and
+    the consumed codes still come out as the oracle's."""
+    data, cap, raises = _TILE_EDGES[case]
+    ref, t = th.make_canonical(_C4_SPEC), tt.make_canonical(_C4_SPEC)
+    outcomes = _c4_stream(t, ref, [], data, cap)
+    assert (outcomes[0] is None) == raises
+    assert outcomes.count(None) == data.count(b"Z")
+
+
+def test_encode_chunk_built_table_holes_matches_oracle():
+    """A table built from a seeded corpus codes only the bytes it saw: an
+    input with bytes outside it, streamed at capacities drawn from 0-7,
+    meets the cut at every offset. Fused, classic and oracle agree call by
+    call, raises included."""
+    rng = np.random.default_rng(16)
+    corpus = rng.choice(np.arange(40, 104), size=4000).astype(np.uint8)
+    ref, t = th.build_table(corpus.tobytes()), tt.build_table(corpus.tobytes())
+    assert (t.lengths == ref.lengths).all() and (t.lengths == 0).sum() > 100
+    data = rng.integers(36, 108, size=400, dtype=np.uint8).tobytes()
+    outcomes = _c4_stream(t, ref, [], data, None, seed=16)
+    assert len(outcomes) > 50 and outcomes.count(None) > 5
 
 
 def test_fused_encode_chunk_rate_hint_miss():

@@ -350,7 +350,9 @@ __device__ __forceinline__ PackSums pack_chunk(
     for (long long i = i0; i < i1; ++i) {
       const int s = syms[i];
       const int l = s_len[s];
-      if (l == 0) continue;  // unknown symbol: the host has raised already
+      // Unknown symbol: no bits. The host raises, unless it starts at or past a
+      // capped call's cut, where the bytes before the cut are all it keeps.
+      if (l == 0) continue;
       // nacc < 32 and 1 <= l <= 32 keep the shift in [1, 63].
       acc |= (unsigned long long)s_pat[s] << (64 - nacc - l);
       nacc += l;

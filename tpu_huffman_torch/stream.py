@@ -27,6 +27,18 @@ leaves its low bits as the next carry (the reference's ``overflow_bits``,
 huffman.c:88-99). Bit offsets are int64, so one call takes any input:
 nothing segments past 2^31 bits.
 
+Unknown symbols follow the reference (huffman.c:148-164, the C++ oracle's
+``Encoder::encode``): the carry goes out first, and the output-full check
+comes before each symbol. So a capped call raises
+``UnknownSymbolError(index, symbol)`` if and only if the first unknown
+symbol starts before the cut (its start bit counts the carry and the codes
+before it; the count of staged symbols that start before the cut comes
+from the cut's tile on the device, with the other scalars). Otherwise the
+call returns as if the input ended at that symbol, with ``done=False``.
+An uncapped call raises at the first unknown symbol. The JAX package
+raises for any unknown symbol that a capped call stages; the port does
+not copy that.
+
 Decoder. The retained stream lives on the device as words
 (:class:`_DeviceRemainder`): a call uploads only its new bytes and
 downloads only the symbols it emits. Up to ``BULK_DECODE_THRESHOLD``
@@ -143,8 +155,13 @@ class HuffmanEncoder:
 
         ``capacity=None`` means unbounded (always completes). Raises
         UnknownSymbolError(index, symbol) at the first symbol without a
-        code, before any output (the reference writes the bytes before it
-        first, huffman.c:62-64).
+        code, before any output and with the carry kept (the reference
+        writes the bytes before it first, huffman.c:62-64); when capped,
+        only if that symbol starts before the cut (carry and codes before
+        it < 8 * capacity bits), as the reference's output-full check
+        comes before each symbol (huffman.c:162-164). Otherwise the call
+        returns the bytes before the cut, ``done=False`` and the carry,
+        consuming no symbol from the unknown one on.
 
         One sequence of launches and one download (see the module's
         docstring); a call whose budget the carry alone spends, or with no
@@ -171,13 +188,9 @@ class HuffmanEncoder:
 
     def _encode_host(self, symbols: np.ndarray, writable: int | None) -> EncodeResult:
         """The calls that write no code: no symbols, or a budget that the
-        carry alone spends (then the staged symbols are a few, checked
-        here)."""
+        carry alone spends. They never raise: with symbols, the first
+        unknown one starts at or past the cut."""
         n = symbols.size
-        if n:
-            bad = np.flatnonzero(self.table.lengths[symbols] == 0)
-            if bad.size:
-                raise UnknownSymbolError(index=int(bad[0]), symbol=int(symbols[bad[0]]))
         carry_pat, carry_len = self._carry_pattern, self._carry_len
         if n == 0 and carry_len == 0:
             return EncodeResult(b"", 0, True)
@@ -204,39 +217,60 @@ class HuffmanEncoder:
         the capacity cut. Returns (symbols on the device, the table on the
         device, the tiles' bits, their int64 inclusive prefix, scalars):
         scalars is [first unknown symbol (n if none), total bits] and, when
-        capped, the cut's [consumed, bits of the consumed codes, straddle,
-        over, carry pattern] in the frame without the carry, all one-element
-        int64 tensors on the device: nothing here waits for it."""
+        capped, [symbols that start before the cut] and the cut's
+        [consumed, bits of the consumed codes, straddle, over, carry
+        pattern] in the frame without the carry, all one-element int64
+        tensors on the device: nothing here waits for it."""
         n = symbols.size
         dev = self.device
         dt = DeviceTable.for_table(self.table, dev)
         sym = stage_bytes(symbols, dev)
         tile_bits, stats = pack_encode.count(sym, dt)
         incl = torch.cumsum(tile_bits, 0, dtype=torch.int64)
-        scalars = [stats[:1], incl[-1:]]
+        first_bad = stats[:1]
+        scalars = [first_bad, incl[-1:]]
         if writable is not None:
             wbp = writable - self._carry_len  # the cut in the frame without the carry
-            # the first tile that ends past the cut, and its codes' ends (one-element
+            # the first tile that ends at or past the cut, and its codes' ends (one-element
             # index tensors: indexing by a 0-d tensor reads it on the host)
-            j = (incl <= wbp).sum().clamp(max=incl.numel() - 1).reshape(1)
-            idx = j * _TILE + torch.arange(_TILE, device=dev)
+            j = (incl < wbp).sum().clamp(max=incl.numel() - 1).reshape(1)
+            base = j * _TILE
+            idx = base + torch.arange(_TILE, device=dev)
             valid = idx < n
             sym_j = sym[idx.clamp(max=n - 1)].to(torch.int64)
             lens_j = torch.where(valid, dt.lengths[sym_j].to(torch.int64), 0)
             start_j = incl[j] - tile_bits[j]
             ends = start_j + torch.cumsum(lens_j, 0)
+            # every symbol of the tiles before j starts before the cut (they end before
+            # it), and none after j: an unknown symbol among these raises
+            before_cut = base + ((ends - lens_j < wbp) & valid).sum()
             k_w = ((ends <= wbp) & valid).sum().reshape(1)  # codes of tile j that fit whole
             kc = k_w.clamp(max=_TILE - 1)
             start_k = torch.where(k_w > 0, ends[(k_w - 1).clamp(min=0)], start_j)
-            consumed = j * _TILE + k_w
+            consumed = base + k_w
             straddle = (consumed < n) & (start_k < wbp)
             over = torch.where(straddle, ends[kc] - wbp, 0)
             pattern = (dt.patterns[sym_j[kc]].to(torch.int64) & MASK32) & (
                 (torch.ones_like(over) << over) - 1)
-            scalars += [consumed + straddle.to(torch.int64),
+            # an unknown symbol has no bits, so one at the cut ends there and counts as
+            # a code that fits; the reference stops before it (then start_k is the
+            # cut and nothing straddles)
+            consumed = torch.minimum(consumed, first_bad)
+            scalars += [before_cut, consumed + straddle.to(torch.int64),
                         torch.where(straddle, ends[kc], start_k), straddle.to(torch.int64),
                         over, pattern]
         return sym, dt, tile_bits, incl, scalars
+
+    def _check_known(self, symbols: np.ndarray, vals: list, writable: int | None) -> bool:
+        """Raise UnknownSymbolError(index, symbol) where the reference does:
+        at the first unknown symbol of an uncapped call, and of a capped one
+        only if the symbol starts before the cut (huffman.c:148-164: the
+        carry goes out first, and the output-full check comes before each
+        symbol). Returns whether every staged symbol has a code."""
+        first_bad, n = vals[0], symbols.size
+        if first_bad < (n if writable is None else vals[2]):
+            raise UnknownSymbolError(index=first_bad, symbol=int(symbols[first_bad]))
+        return first_bad == n
 
     def _encode_fused(self, symbols: np.ndarray, writable: int | None) -> EncodeResult:
         """Count, prefix, cut, the device-total pack of every staged symbol
@@ -262,11 +296,10 @@ class HuffmanEncoder:
             k = (int(dt.encode_rate * n) + carry_len + 7) // 32 + 2
         k = min(k, n_words)
         vals, (head,) = download(torch.cat(scalars), words_to_bytes(words[:k]))
-        first_bad, total = vals[0], vals[1]
-        if first_bad < n:
-            raise UnknownSymbolError(index=first_bad, symbol=int(symbols[first_bad]))
+        known = self._check_known(symbols, vals, writable)
+        total = vals[1]
         total_bits = total + carry_len
-        if writable is None or total_bits <= writable:
+        if known and (writable is None or total_bits <= writable):
             nbytes = -(-total_bits // 8)
             out = head[:nbytes].tobytes()
             if nbytes > head.size:  # the rate hint fell short: the rest of the words
@@ -277,7 +310,7 @@ class HuffmanEncoder:
                 dt.encode_rate = selfsync.RATE_MARGIN * total / n
             self.reset()
             return EncodeResult(out, n, True)
-        consumed, _cut_bits, straddle, over, pattern = vals[2:]
+        consumed, _cut_bits, straddle, over, pattern = vals[3:]
         self._carry_pattern, self._carry_len = (pattern, over) if straddle else (0, 0)
         return EncodeResult(head[: writable // 8].tobytes(), consumed, False)
 
@@ -292,14 +325,13 @@ class HuffmanEncoder:
             return self._encode_host(symbols, writable)
         sym, _dt, tile_bits, incl, scalars = self._count(symbols, writable)
         vals = torch.cat(scalars).tolist()
-        if vals[0] < n:
-            raise UnknownSymbolError(index=vals[0], symbol=int(symbols[vals[0]]))
+        known = self._check_known(symbols, vals, writable)
         offs, total_bits = incl - tile_bits, vals[1] + self._carry_len
-        if writable is None or total_bits <= writable:
+        if known and (writable is None or total_bits <= writable):
             out = self._pack(sym, offs, n, total_bits, self.eos_padding)
             self.reset()
             return EncodeResult(out, n, True)
-        consumed, cut_bits, straddle, over, pattern = vals[2:]
+        consumed, cut_bits, straddle, over, pattern = vals[3:]
         out = self._pack(sym, offs, consumed, cut_bits + self._carry_len, 0)[: writable // 8]
         self._carry_pattern, self._carry_len = (pattern, over) if straddle else (0, 0)
         return EncodeResult(out, consumed, False)

@@ -29,8 +29,9 @@ Layer map (SURVEY.md §1):
   (tools)             -> tables.build_table/optimal_code_lengths/
                          safe_eos_padding and the .def/.tsv/.npz artifacts;
                          huffgen.py: the table-compiler CLI; corpora.py:
-                         the benchmark corpora; metrics.py: call counters
-                         and a torch.profiler trace; prof/: the profiling
+                         the benchmark corpora; metrics.py: the tracing
+                         layer (tt.* spans, one counter registry, call
+                         counters, a torch.profiler trace); prof/: the profiling
                          probes on the card (not imported here)
 """
 

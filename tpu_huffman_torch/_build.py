@@ -22,6 +22,8 @@ import subprocess
 import threading
 import time
 
+from . import metrics
+
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
@@ -181,17 +183,20 @@ def load() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            path = library_path()
-            if not os.path.exists(path):
-                _build(path)
-            lib = ctypes.CDLL(path)
-            for name, argtypes in SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = list(argtypes)
-                fn.restype = ctypes.c_int
-            lib.thc_error_string.argtypes = [ctypes.c_int]
-            lib.thc_error_string.restype = ctypes.c_char_p
-            _lib = lib
+            with metrics.span("tt.setup.kernels"):
+                path = library_path()
+                if not os.path.exists(path):
+                    metrics.setup["kernel_builds"] += 1
+                    _build(path)
+                metrics.setup["kernel_loads"] += 1
+                lib = ctypes.CDLL(path)
+                for name, argtypes in SIGNATURES.items():
+                    fn = getattr(lib, name)
+                    fn.argtypes = list(argtypes)
+                    fn.restype = ctypes.c_int
+                lib.thc_error_string.argtypes = [ctypes.c_int]
+                lib.thc_error_string.restype = ctypes.c_char_p
+                _lib = lib
         return _lib
 
 

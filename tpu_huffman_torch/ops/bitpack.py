@@ -14,6 +14,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import metrics
+
 MASK32 = 0xFFFFFFFF
 
 
@@ -52,10 +54,11 @@ def bytes_to_words(b: torch.Tensor) -> torch.Tensor:
 def stage_words(raw: torch.Tensor) -> torch.Tensor:
     """uint8 stream bytes -> int32 words, the last word zero-padded. The
     decoders read words past the last one as zeros too."""
-    pad = (-raw.numel()) % 4
-    if pad:
-        raw = torch.cat([raw, raw.new_zeros(pad)])
-    return bytes_to_words(raw)
+    with metrics.span("tt.stage.upload"):
+        pad = (-raw.numel()) % 4
+        if pad:
+            raw = torch.cat([raw, raw.new_zeros(pad)])
+        return bytes_to_words(raw)
 
 
 def words_to_bytes(w: torch.Tensor) -> torch.Tensor:

@@ -20,11 +20,11 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, metrics
 from .bitpack import extract_windows, u32
 
 MAX_ROOT_BITS = 12  # the decode LUT's level-0 width: it fits the kernels' shared memory
-launches = {"chain_decode": 0}
+launches = metrics.register("ops.chain_decode.launches", {"chain_decode": 0})
 
 
 def lut_lookup(window: torch.Tensor, dt):

@@ -78,27 +78,41 @@ def decode_indexed(data, index: BlockIndex, table: HuffmanTable,
     fills the output after the symbols of blocks 0..b-1. Raises
     UnknownSymbolError when a window inside a block matches no code.
     """
+    metrics.calls["decode_indexed"] += 1
+    with metrics.span("tt.decode_indexed"):
+        return _decode_indexed(data, index, table, device)
+
+
+def _decode_indexed(data, index, table, device) -> bytes:
     dev = resolve_device(device)
-    offs, counts = index_arrays(index)
+    with metrics.span("tt.decode.index"):
+        offs, counts = index_arrays(index)
     if index.total_symbols == 0:
         return b""
     raw = stage_bytes(data, dev)
-    check_offsets(offs, raw.numel())
-    words = stage_words(raw)
-    out_start = np.zeros_like(counts)
-    np.cumsum(counts[:-1], out=out_start[1:])
-    out, _end, bad = chain_decode.decode_chains(
-        words,
-        torch.tensor(offs, device=dev),
-        torch.tensor(counts.astype(np.int32), device=dev),
-        torch.tensor(out_start, device=dev),
-        index.total_symbols,
-        DeviceTable.for_table(table, dev),
-    )
-    out_host = out.cpu()
-    if int(bad.item()):
-        raise UnknownSymbolError()
-    return out_host.numpy().tobytes()
+    with metrics.span("tt.decode.index"):
+        check_offsets(offs, raw.numel())
+        words = stage_words(raw)
+        out_start = np.zeros_like(counts)
+        np.cumsum(counts[:-1], out=out_start[1:])
+        counts32 = counts.astype(np.int32)
+    with metrics.h2d(offs.nbytes):
+        offs_d = torch.tensor(offs, device=dev)
+    with metrics.h2d(counts32.nbytes):
+        counts_d = torch.tensor(counts32, device=dev)
+    with metrics.h2d(out_start.nbytes):
+        out_start_d = torch.tensor(out_start, device=dev)
+    with metrics.span("tt.decode.chain"):
+        out, _end, bad = chain_decode.decode_chains(
+            words, offs_d, counts_d, out_start_d, index.total_symbols,
+            DeviceTable.for_table(table, dev),
+        )
+    with metrics.d2h(out.numel()):
+        out_host = out.cpu()
+    with metrics.d2h(bad.element_size()):
+        if int(bad.item()):
+            raise UnknownSymbolError()
+        return out_host.numpy().tobytes()
 
 
 def decode(data, table: HuffmanTable, max_output: int | None = None,
@@ -110,6 +124,7 @@ def decode(data, table: HuffmanTable, max_output: int | None = None,
     rules. With ``max_output``, decoding stops after that many symbols.
     Inputs of any size decode in one call: absolute bit positions are int64.
     """
+    metrics.calls["decode"] += 1
     with metrics.record("decode", len(data)) as m:
         out = _decode_impl(data, table, max_output, device)
         m[0] = len(out)
@@ -127,7 +142,9 @@ def _decode_impl(data, table, max_output, device) -> bytes:
         stage_words(raw), 0, 8 * raw.numel(), max_output,
         DeviceTable.for_table(table, dev),
     )
-    n, _end_bit, status = info.tolist()
+    with metrics.d2h(8 * info.numel()):
+        n, _end_bit, status = info.tolist()
     if status == STATUS_UNKNOWN_SYMBOL:
         raise UnknownSymbolError()
-    return syms[:n].cpu().numpy().tobytes()
+    with metrics.d2h(n):
+        return syms[:n].cpu().numpy().tobytes()

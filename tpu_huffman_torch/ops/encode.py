@@ -52,19 +52,24 @@ def stage_bytes(data, dev: torch.device) -> torch.Tensor:
     if isinstance(data, torch.Tensor):
         if data.dtype != torch.uint8:
             raise ValueError("a tensor input must be uint8")
-        return data.reshape(-1).to(dev).contiguous()
+        flat = data.reshape(-1)
+        if flat.device.type == "cpu" and dev.type == "cuda":
+            with metrics.h2d(flat.numel()):
+                return flat.to(dev).contiguous()
+        return flat.to(dev).contiguous()
     if isinstance(data, (bytes, bytearray, memoryview)):
         src = np.frombuffer(data, dtype=np.uint8)
     else:
         src = np.asarray(data, dtype=np.uint8).reshape(-1)
-    if dev.type != "cuda":
-        # a private, writable copy: torch.from_numpy shares the buffer
-        return torch.from_numpy(src.copy())
-    # through a pinned buffer, so that the upload does not block the host
-    # (a copy from pageable memory waits for the device)
-    staged = torch.empty(src.size, dtype=torch.uint8, pin_memory=True)
-    staged.numpy()[:] = src
-    return staged.to(dev, non_blocking=True)
+    with metrics.h2d(src.size):
+        if dev.type != "cuda":
+            # a private, writable copy: torch.from_numpy shares the buffer
+            return torch.from_numpy(src.copy())
+        # through a pinned buffer, so that the upload does not block the host
+        # (a copy from pageable memory waits for the device)
+        staged = torch.empty(src.size, dtype=torch.uint8, pin_memory=True)
+        staged.numpy()[:] = src
+        return staged.to(dev, non_blocking=True)
 
 
 class DeviceTable:
@@ -82,28 +87,30 @@ class DeviceTable:
     _cache: dict = {}
 
     def __init__(self, table: HuffmanTable, dev: torch.device):
-        self.table = table
-        # bits a symbol of the last uncapped streaming encode, with a margin:
-        # sizes the next one's download (stream.HuffmanEncoder)
-        self.encode_rate = None
+        metrics.setup["device_tables"] += 1
+        with metrics.span("tt.setup.table"):
+            self.table = table
+            # bits a symbol of the last uncapped streaming encode, with a margin:
+            # sizes the next one's download (stream.HuffmanEncoder)
+            self.encode_rate = None
 
-        def put(a, dtype):
-            return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+            def put(a, dtype):
+                return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
 
-        self.patterns = put(table.patterns.astype(np.uint32).view(np.int32), torch.int32)
-        self.lengths = put(table.lengths, torch.int32)
-        *lut, self.root_bits = _build_decode_lut(
-            table.lengths, table.patterns, min(int(table.root_bits), MAX_ROOT_BITS)
-        )
-        l0_bits, l0_val, l1_bits, l1_val = (a.astype(np.int64) for a in lut)
-        if l1_bits.size >= 1 << 23:
-            raise ValueError("level-1 LUT too large for the packed entry form")
-        self.l0 = put((l0_val << 8) | (l0_bits & 0xFF), torch.int32)
-        self.l1 = put((l1_val << 8) | l1_bits, torch.int32)
-        self.l0_bits = put(l0_bits, torch.int64)
-        self.l0_val = put(l0_val, torch.int64)
-        self.l1_bits = put(l1_bits, torch.int64)
-        self.l1_val = put(l1_val, torch.int64)
+            self.patterns = put(table.patterns.astype(np.uint32).view(np.int32), torch.int32)
+            self.lengths = put(table.lengths, torch.int32)
+            *lut, self.root_bits = _build_decode_lut(
+                table.lengths, table.patterns, min(int(table.root_bits), MAX_ROOT_BITS)
+            )
+            l0_bits, l0_val, l1_bits, l1_val = (a.astype(np.int64) for a in lut)
+            if l1_bits.size >= 1 << 23:
+                raise ValueError("level-1 LUT too large for the packed entry form")
+            self.l0 = put((l0_val << 8) | (l0_bits & 0xFF), torch.int32)
+            self.l1 = put((l1_val << 8) | l1_bits, torch.int32)
+            self.l0_bits = put(l0_bits, torch.int64)
+            self.l0_val = put(l0_val, torch.int64)
+            self.l1_bits = put(l1_bits, torch.int64)
+            self.l1_val = put(l1_val, torch.int64)
 
     @staticmethod
     def for_table(table: HuffmanTable, dev: torch.device) -> "DeviceTable":
@@ -121,22 +128,26 @@ def _encode_device(symbols: torch.Tensor, dt: DeviceTable, eos_padding: int,
     padded_bits, block offsets int64 (None without block_symbols), longest
     code in the data)."""
     n = symbols.numel()
-    tile_bits, stats = pack_encode.count(symbols, dt)
-    incl = torch.cumsum(tile_bits, 0, dtype=torch.int64)
-    first_bad, max_len, total_bits = torch.cat([stats, incl[-1:]]).tolist()
+    with metrics.span("tt.encode.count"):
+        tile_bits, stats = pack_encode.count(symbols, dt)
+        incl = torch.cumsum(tile_bits, 0, dtype=torch.int64)
+    with metrics.d2h(8 * (stats.numel() + 1)):
+        first_bad, max_len, total_bits = torch.cat([stats, incl[-1:]]).tolist()
     if first_bad < n:
         raise UnknownSymbolError(index=first_bad, symbol=int(symbols[first_bad]))
-    _pad, pad_len = pack_encode.pad_code(total_bits, eos_padding)
-    padded_bits = total_bits + pad_len
-    words, block_offs = pack_encode.pack(
-        symbols, dt, incl - tile_bits, total_bits, eos_padding,
-        -(-padded_bits // 32), block_symbols,
-    )
+    with metrics.span("tt.encode.pack"):
+        _pad, pad_len = pack_encode.pad_code(total_bits, eos_padding)
+        padded_bits = total_bits + pad_len
+        words, block_offs = pack_encode.pack(
+            symbols, dt, incl - tile_bits, total_bits, eos_padding,
+            -(-padded_bits // 32), block_symbols,
+        )
     return words, total_bits, padded_bits, block_offs, max_len
 
 
 def _to_bytes(words: torch.Tensor, padded_bits: int) -> bytes:
-    return words_to_bytes(words)[: padded_bits // 8].cpu().numpy().tobytes()
+    with metrics.d2h(padded_bits // 8):
+        return words_to_bytes(words)[: padded_bits // 8].cpu().numpy().tobytes()
 
 
 def encode(data, table: HuffmanTable, eos_padding: int = DEFAULT_EOS_PADDING,
@@ -146,6 +157,7 @@ def encode(data, table: HuffmanTable, eos_padding: int = DEFAULT_EOS_PADDING,
     Raises UnknownSymbolError (with the input index and symbol of the first
     symbol that has no code).
     """
+    metrics.calls["encode"] += 1
     with metrics.record("encode", len(data)) as m:
         out = _encode_impl(data, table, eos_padding, device)
         m[0] = len(out)
@@ -183,6 +195,12 @@ def encode_with_index(data, table: HuffmanTable,
     The bytes are identical to :func:`encode`; the index is side metadata:
     the starting bit of every ``block_symbols`` symbols (None: 256).
     """
+    metrics.calls["encode_with_index"] += 1
+    with metrics.span("tt.encode_with_index"):
+        return _encode_with_index(data, table, eos_padding, block_symbols, device)
+
+
+def _encode_with_index(data, table, eos_padding, block_symbols, device):
     from .decode import BlockIndex  # decode imports this module
 
     dev = resolve_device(device)
@@ -200,9 +218,11 @@ def encode_with_index(data, table: HuffmanTable,
     n_blocks = -(-n // block_symbols)
     n_syms = np.full(n_blocks, block_symbols, dtype=np.int32)
     n_syms[-1] = n - (n_blocks - 1) * block_symbols
+    with metrics.d2h(8 * block_offs.numel()):
+        bit_offsets = block_offs.cpu().numpy()
     index = BlockIndex(
         symbols_per_block=block_symbols,
-        bit_offsets=block_offs.cpu().numpy(),
+        bit_offsets=bit_offsets,
         n_symbols=n_syms,
         total_symbols=n,
         total_bits=total_bits,

@@ -32,13 +32,13 @@ from __future__ import annotations
 
 import torch
 
-from .. import _build
+from .. import _build, metrics
 from .bitpack import MASK32, i32, u32
 
 # symbols a tile: one block of 256 threads, 16 symbols (one uint4) each
 # (csrc/pack.cuh kTile)
 TILE = 4096
-launches = {"encode_count": 0, "encode_pack": 0}
+launches = metrics.register("ops.pack_encode.launches", {"encode_count": 0, "encode_pack": 0})
 
 
 def n_tiles(n: int) -> int:

@@ -89,7 +89,7 @@ import dataclasses
 
 import torch
 
-from .. import _build
+from .. import _build, metrics
 from ..errors import UnknownSymbolError
 from ..tables import MAX_CODE_BITS, HuffmanTable
 from . import stream_decode
@@ -110,13 +110,15 @@ PATCH_SYMS = 32
 # (``_stitch_fast``); the port has one stitch, with the larger of the two.
 # More failures fall back to the fixpoint.
 R_MAX = 256
-launches = {"selfsync_decode": 0, "selfsync_decode_starts": 0, "selfsync_decode_blast": 0,
-            "selfsync_decode_patch": 0, "selfsync_decode_repair": 0}
+launches = metrics.register("ops.selfsync.launches", {
+    "selfsync_decode": 0, "selfsync_decode_starts": 0, "selfsync_decode_blast": 0,
+    "selfsync_decode_patch": 0, "selfsync_decode_repair": 0})
 # drains of kernel segments by how they ended, and the segments repaired;
 # the fused drains that fell back to the classic ones, and the fused drains
 # whose body outgrew the first download
-outcomes = {"stitched": 0, "repaired": 0, "fixpoint": 0, "segments_repaired": 0,
-            "fallback": 0, "second_downloads": 0}
+outcomes = metrics.register("ops.selfsync.outcomes", {
+    "stitched": 0, "repaired": 0, "fixpoint": 0, "segments_repaired": 0, "fallback": 0,
+    "second_downloads": 0})
 
 
 def supports(table: HuffmanTable) -> bool:
@@ -202,44 +204,45 @@ def decode_segments(words: torch.Tensor, entries: torch.Tensor, seg_bits: int,
     its counts, exits and bad are 0, and its starts and blast are left as
     they were.
     """
-    _check(words, entries, dt)
-    dev = words.device
-    t = entries.numel()
-    if starts is not None:
-        _check_starts(starts, (t, max_syms), seg_bits, dev)
-    if blast is not None:
-        _check_lanes("blast", blast, t, dev)
-    if seg_ids is not None:
-        _check_lanes("seg_ids", seg_ids, t, dev)
-    if not 0 <= max_codes <= max_syms:
-        raise ValueError(f"max_codes must be in [0, max_syms={max_syms}], got {max_codes}")
-    if dev.type == "cpu":
-        return decode_segments_plain(words, entries, seg_bits, max_syms, dt, starts, blast,
-                                     max_codes, seg_ids)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    syms = torch.empty((t, max_syms), dtype=torch.uint8, device=dev)
-    new = torch.empty if seg_ids is None else torch.zeros  # dead lanes write nothing
-    counts, exits, bad = (new(t, dtype=torch.int32, device=dev) for _ in range(3))
-    words, entries = words.contiguous(), entries.contiguous()
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    with metrics.span("tt.selfsync.pass"):
+        _check(words, entries, dt)
+        dev = words.device
+        t = entries.numel()
+        if starts is not None:
+            _check_starts(starts, (t, max_syms), seg_bits, dev)
+        if blast is not None:
+            _check_lanes("blast", blast, t, dev)
+        if seg_ids is not None:
+            _check_lanes("seg_ids", seg_ids, t, dev)
+        if not 0 <= max_codes <= max_syms:
+            raise ValueError(f"max_codes must be in [0, max_syms={max_syms}], got {max_codes}")
+        if dev.type == "cpu":
+            return decode_segments_plain(words, entries, seg_bits, max_syms, dt, starts, blast,
+                                         max_codes, seg_ids)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        syms = torch.empty((t, max_syms), dtype=torch.uint8, device=dev)
+        new = torch.empty if seg_ids is None else torch.zeros  # dead lanes write nothing
+        counts, exits, bad = (new(t, dtype=torch.int32, device=dev) for _ in range(3))
+        words, entries = words.contiguous(), entries.contiguous()
+        stream = torch.cuda.current_stream(dev).cuda_stream
 
-    def ptr(x):
-        return None if x is None else x.data_ptr()
+        def ptr(x):
+            return None if x is None else x.data_ptr()
 
-    err = _build.load().thc_selfsync_decode(
-        dev.index, words.data_ptr(), words.numel(), entries.data_ptr(), ptr(seg_ids), t,
-        seg_bits, max_syms, max_codes, dt.l0.data_ptr(), dt.root_bits, dt.l1.data_ptr(),
-        dt.l1.numel(), dt.table.max_len, syms.data_ptr(), ptr(starts), counts.data_ptr(),
-        exits.data_ptr(), bad.data_ptr(), ptr(blast), stream,
-    )
-    _build.check("thc_selfsync_decode", err)
-    launches["selfsync_decode"] += 1
-    launches["selfsync_decode_starts"] += starts is not None
-    launches["selfsync_decode_blast"] += blast is not None
-    launches["selfsync_decode_patch"] += max_codes > 0
-    launches["selfsync_decode_repair"] += seg_ids is not None
-    return syms, counts, exits, bad
+        err = _build.load().thc_selfsync_decode(
+            dev.index, words.data_ptr(), words.numel(), entries.data_ptr(), ptr(seg_ids), t,
+            seg_bits, max_syms, max_codes, dt.l0.data_ptr(), dt.root_bits, dt.l1.data_ptr(),
+            dt.l1.numel(), dt.table.max_len, syms.data_ptr(), ptr(starts), counts.data_ptr(),
+            exits.data_ptr(), bad.data_ptr(), ptr(blast), stream,
+        )
+        _build.check("thc_selfsync_decode", err)
+        launches["selfsync_decode"] += 1
+        launches["selfsync_decode_starts"] += starts is not None
+        launches["selfsync_decode_blast"] += blast is not None
+        launches["selfsync_decode_patch"] += max_codes > 0
+        launches["selfsync_decode_repair"] += seg_ids is not None
+        return syms, counts, exits, bad
 
 
 def decode_segments_plain(words: torch.Tensor, entries: torch.Tensor,
@@ -302,7 +305,9 @@ def _fixpoint(words: torch.Tensor, n_segs: int, seg_bits: int, start_bit: int,
         syms, counts, exits, bad = decode_segments(words, entries, seg_bits, max_syms, dt,
                                                    starts=starts)
         new = torch.cat([entries[:1], exits[:-1] - seg_bits])
-        if torch.equal(new, entries):
+        with metrics.d2h(1):
+            same = torch.equal(new, entries)
+        if same:
             return syms, counts, exits, bad, entries, passes
         entries = new
     raise RuntimeError(f"self-sync entries did not converge in {n_segs + 1} passes")
@@ -419,51 +424,53 @@ def stitch(words: torch.Tensor, start_bit: int, plan: tuple, dt,
     the stream's content: a true chain with an invalid window never
     resolves.
     """
-    n_segs, seg_bits = plan
-    if seg_bits > MAX_STARTS_SEG_BITS:
-        return None  # no int16 starts to merge at
-    dev = words.device
-    m = _merge(words, start_bit, plan, dt)
-    max_syms, syms0, starts0, exits0 = m.max_syms, m.syms0, m.starts0, m.exits0
-    syms_a, starts_a, i_eff, j_s, counts, fail = (m.syms_a, m.starts_a, m.i_eff, m.j_s,
-                                                  m.counts, m.fail)
+    with metrics.span("tt.selfsync.stitch"):
+        n_segs, seg_bits = plan
+        if seg_bits > MAX_STARTS_SEG_BITS:
+            return None  # no int16 starts to merge at
+        dev = words.device
+        m = _merge(words, start_bit, plan, dt)
+        max_syms, syms0, starts0, exits0 = m.max_syms, m.syms0, m.starts0, m.exits0
+        syms_a, starts_a, i_eff, j_s, counts, fail = (m.syms_a, m.starts_a, m.i_eff, m.j_s,
+                                                      m.counts, m.fail)
 
-    def read(flag):
-        """One host read: (total, last exit, the cut's bit or 0, flag)."""
-        cum = torch.cumsum(counts, 0)
-        cut_bit = torch.zeros((), dtype=torch.int64, device=dev)
-        if capacity is not None:
-            cut_bit = _cut_bit(cum, capacity, seg_bits, i_eff, j_s, starts_a, starts0)
-        return torch.stack([cum[-1], exits0[-1].long(), cut_bit, flag.long()]).tolist()
+        def read(flag):
+            """One host read: (total, last exit, the cut's bit or 0, flag)."""
+            cum = torch.cumsum(counts, 0)
+            cut_bit = torch.zeros((), dtype=torch.int64, device=dev)
+            if capacity is not None:
+                cut_bit = _cut_bit(cum, capacity, seg_bits, i_eff, j_s, starts_a, starts0)
+            with metrics.d2h(32):
+                return torch.stack([cum[-1], exits0[-1].long(), cut_bit, flag.long()]).tolist()
 
-    total, last_exit, cut_bit, n_fail = read(fail.sum())
-    lanes = max(R_MAX, n_segs >> 5)
-    if n_fail > lanes:
-        return None
-    if n_fail:
-        # 5. repair: the failed segments' ids in lanes 0..n_fail-1, the rest dead
-        seg_ids = _repair_lanes(fail, lanes)[0]
-        ent_r = torch.where(seg_ids >= 0, m.entries1[seg_ids.clamp(min=0).long()], 0)
-        starts_r = torch.empty((lanes, max_syms), dtype=torch.int16, device=dev)
-        syms_r, count_r, exits_r, bad_r = decode_segments(
-            words, ent_r, seg_bits, max_syms, dt, starts=starts_r, seg_ids=seg_ids)
-        ids = seg_ids[:n_fail].long()
-        ok = ((bad_r[:n_fail] == 0) & (exits_r[:n_fail] == exits0[ids])).all()
-        # a repaired segment is its repaired row whole: no head, all tail
-        syms0[ids], starts0[ids] = syms_r[:n_fail], starts_r[:n_fail]
-        i_eff.index_fill_(0, ids, 0)
-        j_s.index_fill_(0, ids, 0)
-        counts[ids] = count_r[:n_fail].long()
-        total, last_exit, cut_bit, repair_ok = read(ok)
-        if not repair_ok:
+        total, last_exit, cut_bit, n_fail = read(fail.sum())
+        lanes = max(R_MAX, n_segs >> 5)
+        if n_fail > lanes:
             return None
-    # 6. the body, cut at `capacity`
-    n_out = total if capacity is None else min(total, capacity)
-    body = _assemble(syms_a, syms0, i_eff, j_s, counts, n_out)
-    outcomes["repaired" if n_fail else "stitched"] += 1
-    outcomes["segments_repaired"] += n_fail
-    cut = cut_bit if capacity is not None and total > capacity else None
-    return body, n_segs * seg_bits + last_exit - seg_bits, total, cut
+        if n_fail:
+            # 5. repair: the failed segments' ids in lanes 0..n_fail-1, the rest dead
+            seg_ids = _repair_lanes(fail, lanes)[0]
+            ent_r = torch.where(seg_ids >= 0, m.entries1[seg_ids.clamp(min=0).long()], 0)
+            starts_r = torch.empty((lanes, max_syms), dtype=torch.int16, device=dev)
+            syms_r, count_r, exits_r, bad_r = decode_segments(
+                words, ent_r, seg_bits, max_syms, dt, starts=starts_r, seg_ids=seg_ids)
+            ids = seg_ids[:n_fail].long()
+            ok = ((bad_r[:n_fail] == 0) & (exits_r[:n_fail] == exits0[ids])).all()
+            # a repaired segment is its repaired row whole: no head, all tail
+            syms0[ids], starts0[ids] = syms_r[:n_fail], starts_r[:n_fail]
+            i_eff.index_fill_(0, ids, 0)
+            j_s.index_fill_(0, ids, 0)
+            counts[ids] = count_r[:n_fail].long()
+            total, last_exit, cut_bit, repair_ok = read(ok)
+            if not repair_ok:
+                return None
+        # 6. the body, cut at `capacity`
+        n_out = total if capacity is None else min(total, capacity)
+        body = _assemble(syms_a, syms0, i_eff, j_s, counts, n_out)
+        outcomes["repaired" if n_fail else "stitched"] += 1
+        outcomes["segments_repaired"] += n_fail
+        cut = cut_bit if capacity is not None and total > capacity else None
+        return body, n_segs * seg_bits + last_exit - seg_bits, total, cut
 
 
 def _cut_bit(cum: torch.Tensor, capacity: int, seg_bits: int, i_eff: torch.Tensor,
@@ -496,49 +503,52 @@ def _fixpoint_body(words: torch.Tensor, start_bit: int, plan: tuple, dt,
     or, with ``capacity``, on one reached within the first ``capacity``
     symbols or right after them (the reference checks an unknown symbol
     before a full output)."""
-    n_segs, seg_bits = plan
-    dev = words.device
-    max_syms = max_symbols(dt.table, seg_bits)
-    if capacity is None:
+    with metrics.span("tt.selfsync.fixpoint"):
+        n_segs, seg_bits = plan
+        dev = words.device
+        max_syms = max_symbols(dt.table, seg_bits)
+        if capacity is None:
+            syms, counts, exits, bad, _entries, _passes = _fixpoint(
+                words, n_segs, seg_bits, start_bit, max_syms, dt)
+            with metrics.d2h(24):
+                any_bad, last_exit, total = torch.stack([
+                    (bad != 0).any().to(torch.int64), exits[-1].to(torch.int64),
+                    counts.sum(dtype=torch.int64),
+                ]).tolist()
+            if any_bad:
+                raise UnknownSymbolError()
+            return _body(syms, counts), n_segs * seg_bits + last_exit - seg_bits, total, None
+        starts = torch.empty((n_segs, max_syms), dtype=torch.int16, device=dev)
         syms, counts, exits, bad, _entries, _passes = _fixpoint(
-            words, n_segs, seg_bits, start_bit, max_syms, dt)
-        any_bad, last_exit, total = torch.stack([
-            (bad != 0).any().to(torch.int64), exits[-1].to(torch.int64),
-            counts.sum(dtype=torch.int64),
-        ]).tolist()
-        if any_bad:
+            words, n_segs, seg_bits, start_bit, max_syms, dt, starts=starts)
+        cum = torch.cumsum(counts, 0, dtype=torch.int64)
+        seg = torch.arange(n_segs, device=dev)
+        cols = torch.arange(max_syms, device=dev)
+
+        def before(s):  # symbols in the segments before s
+            return torch.where(s > 0, cum[(s - 1).clamp(min=0)], 0)
+
+        # the first invalid window on the converged chain, and the symbols
+        # before it, counted from the kernel's starts
+        is_bad = bad != 0
+        s_b = torch.where(is_bad, seg, n_segs).min().clamp(max=n_segs - 1)
+        before_bad = before(s_b) + (
+            (starts[s_b].to(torch.int64) < bad[s_b].to(torch.int64) - 1) & (cols < counts[s_b])
+        ).sum()
+        # the segment holding symbol number `capacity` (0-based), and its slot
+        s_c = (cum <= capacity).sum().clamp(max=n_segs - 1)
+        within = capacity - before(s_c)
+        cut_rel = starts[s_c, within.clamp(0, max_syms - 1)]
+        with metrics.d2h(48):
+            total, any_bad, before_bad, last_exit, s_c, cut_rel = torch.stack([
+                cum[-1], is_bad.any().to(torch.int64), before_bad, exits[-1].to(torch.int64),
+                s_c, cut_rel.to(torch.int64),
+            ]).tolist()
+        if any_bad and capacity >= before_bad:
             raise UnknownSymbolError()
-        return _body(syms, counts), n_segs * seg_bits + last_exit - seg_bits, total, None
-    starts = torch.empty((n_segs, max_syms), dtype=torch.int16, device=dev)
-    syms, counts, exits, bad, _entries, _passes = _fixpoint(
-        words, n_segs, seg_bits, start_bit, max_syms, dt, starts=starts)
-    cum = torch.cumsum(counts, 0, dtype=torch.int64)
-    seg = torch.arange(n_segs, device=dev)
-    cols = torch.arange(max_syms, device=dev)
-
-    def before(s):  # symbols in the segments before s
-        return torch.where(s > 0, cum[(s - 1).clamp(min=0)], 0)
-
-    # the first invalid window on the converged chain, and the symbols
-    # before it, counted from the kernel's starts
-    is_bad = bad != 0
-    s_b = torch.where(is_bad, seg, n_segs).min().clamp(max=n_segs - 1)
-    before_bad = before(s_b) + (
-        (starts[s_b].to(torch.int64) < bad[s_b].to(torch.int64) - 1) & (cols < counts[s_b])
-    ).sum()
-    # the segment holding symbol number `capacity` (0-based), and its slot
-    s_c = (cum <= capacity).sum().clamp(max=n_segs - 1)
-    within = capacity - before(s_c)
-    cut_rel = starts[s_c, within.clamp(0, max_syms - 1)]
-    total, any_bad, before_bad, last_exit, s_c, cut_rel = torch.stack([
-        cum[-1], is_bad.any().to(torch.int64), before_bad, exits[-1].to(torch.int64),
-        s_c, cut_rel.to(torch.int64),
-    ]).tolist()
-    if any_bad and capacity >= before_bad:
-        raise UnknownSymbolError()
-    cut = s_c * seg_bits + cut_rel if total > capacity else None
-    return (_body(syms, counts)[:capacity], n_segs * seg_bits + last_exit - seg_bits, total,
-            cut)
+        cut = s_c * seg_bits + cut_rel if total > capacity else None
+        return (_body(syms, counts)[:capacity], n_segs * seg_bits + last_exit - seg_bits, total,
+                cut)
 
 
 def _segments(words: torch.Tensor, start_bit: int, plan: tuple, dt,
@@ -557,7 +567,8 @@ def decode_tail(words: torch.Tensor, from_bit: int, total_bits: int, budget: int
     ``more`` means it stopped with the budget spent and a further symbol
     decodable. Raises UnknownSymbolError where the reference would."""
     syms, info = stream_decode.decode_stream(words, from_bit, total_bits, budget, dt)
-    n, end_bit, status = info.tolist()
+    with metrics.d2h(24):
+        n, end_bit, status = info.tolist()
     if status == stream_decode.STATUS_UNKNOWN_SYMBOL:
         raise UnknownSymbolError()
     return syms[:n], end_bit, status == stream_decode.STATUS_OUTPUT_FULL
@@ -619,7 +630,8 @@ def _drain_capped(words: torch.Tensor, start_bit: int, total_bits: int,
 
 
 def _host_bytes(symbols: torch.Tensor) -> bytes:
-    return symbols.cpu().numpy().tobytes()
+    with metrics.d2h(symbols.numel()):
+        return symbols.cpu().numpy().tobytes()
 
 
 def _seg_words(seg_words: int | None) -> int:
@@ -700,7 +712,8 @@ def _walk_fused(words: torch.Tensor, start_bit: int, limit_bit: int, capacity: i
     end_bit, more) from one download. Raises UnknownSymbolError where the
     reference would."""
     syms, info = stream_decode.decode_stream(words, start_bit, limit_bit, capacity, dt)
-    (n, end_bit, status), (host,) = download(info, syms)
+    with metrics.d2h(8 * info.numel() + syms.numel()):
+        (n, end_bit, status), (host,) = download(info, syms)
     if status == stream_decode.STATUS_UNKNOWN_SYMBOL:
         raise UnknownSymbolError()
     return host[:n].tobytes(), end_bit, status == stream_decode.STATUS_OUTPUT_FULL
@@ -763,9 +776,10 @@ def _segments_fused(words: torch.Tensor, start_bit: int, limit_bit: int, plan: t
     tail_start = (n_segs - 1) * seg_bits + m.exits0[-1].long()
     args = torch.stack([tail_start, torch.full_like(total, limit_bit), budget])
     tail, info = stream_decode.decode_stream_dev(words, args, slots, dt)
-    scalars = torch.cat([torch.stack([total, ok.long(), n_fail, cut_bit]), info])
-    (total, ok, n_fail, cut_bit, n_tail, end_bit, status), (body_h, tail_h) = download(
-        scalars, body, tail)
+    with metrics.d2h(8 * (4 + info.numel()) + body.numel() + tail.numel()):
+        scalars = torch.cat([torch.stack([total, ok.long(), n_fail, cut_bit]), info])
+        (total, ok, n_fail, cut_bit, n_tail, end_bit, status), (body_h, tail_h) = download(
+            scalars, body, tail)
     if not ok:
         return None
     outcomes["repaired" if n_fail else "stitched"] += 1
@@ -805,29 +819,30 @@ def fused_drain_words(buf: torch.Tensor, nbytes: int, consumed_bit: int, table: 
     instead (``outcomes["fallback"]``); it owns the errors of the body. An
     unknown symbol in the tail raises UnknownSymbolError here.
     """
-    if capacity is not None and capacity < 0:
-        raise ValueError(f"capacity must be >= 0, got {capacity}")
-    seg_words = _seg_words(seg_words)
-    view, sb, total_bits, base = words_view(buf, nbytes, consumed_bit)
-    if total_bits <= sb:
-        return b"", consumed_bit, False, rate
-    dt = DeviceTable.for_table(table, buf.device)
-    prefix_bits, full = _prefix(sb, total_bits, capacity, table)
-    plan = _plan_segments(prefix_bits, seg_words)
-    got = None
-    if plan is None:
-        got = (*_walk_fused(view, sb, prefix_bits, capacity, dt), rate)
-    elif plan[1] <= MAX_STARTS_SEG_BITS:
-        got = _segments_fused(view, sb, prefix_bits, plan, capacity, rate, dt)
-    if got is None or (capacity is not None and not got[2] and not full):
-        outcomes["fallback"] += 1
-        if capacity is None:
-            return (*selfsync_decode_words(buf, nbytes, consumed_bit, table, seg_words), False,
-                    rate)
-        return (*selfsync_decode_capped_words(buf, nbytes, consumed_bit, table, capacity,
-                                              seg_words), rate)
-    out, end_bit, more, rate = got
-    return out, base + end_bit, more, rate
+    with metrics.span("tt.selfsync.stitch"):
+        if capacity is not None and capacity < 0:
+            raise ValueError(f"capacity must be >= 0, got {capacity}")
+        seg_words = _seg_words(seg_words)
+        view, sb, total_bits, base = words_view(buf, nbytes, consumed_bit)
+        if total_bits <= sb:
+            return b"", consumed_bit, False, rate
+        dt = DeviceTable.for_table(table, buf.device)
+        prefix_bits, full = _prefix(sb, total_bits, capacity, table)
+        plan = _plan_segments(prefix_bits, seg_words)
+        got = None
+        if plan is None:
+            got = (*_walk_fused(view, sb, prefix_bits, capacity, dt), rate)
+        elif plan[1] <= MAX_STARTS_SEG_BITS:
+            got = _segments_fused(view, sb, prefix_bits, plan, capacity, rate, dt)
+        if got is None or (capacity is not None and not got[2] and not full):
+            outcomes["fallback"] += 1
+            if capacity is None:
+                return (*selfsync_decode_words(buf, nbytes, consumed_bit, table, seg_words), False,
+                        rate)
+            return (*selfsync_decode_capped_words(buf, nbytes, consumed_bit, table, capacity,
+                                                  seg_words), rate)
+        out, end_bit, more, rate = got
+        return out, base + end_bit, more, rate
 
 
 def selfsync_decode_capped(data, table: HuffmanTable, capacity: int,

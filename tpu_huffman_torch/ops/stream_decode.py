@@ -42,7 +42,7 @@ import functools
 
 import torch
 
-from .. import _build
+from .. import _build, metrics
 from .bitpack import extract_windows, u32
 from .chain_decode import lut_lookup
 
@@ -67,7 +67,8 @@ OVERLAP_BITS = 256
 # The CPU route's: small, so that the tests' walks span many windows.
 CPU_WINDOW_WORDS = 64
 CPU_SUB_BITS = 64
-launches = {"stream_decode": 0, "stream_decode_dev": 0}
+launches = metrics.register("ops.stream_decode.launches",
+                            {"stream_decode": 0, "stream_decode_dev": 0})
 
 
 def out_size(dt, start_bit: int, total_bits: int, out_capacity: int | None) -> int:
@@ -169,17 +170,18 @@ def decode_stream(words: torch.Tensor, start_bit: int, total_bits: int,
     :func:`card_shape`'s on the card, CPU_WINDOW_WORDS and CPU_SUB_BITS on
     the CPU.
     """
-    _check(words, start_bit, dt)
-    dev = words.device
-    if dev.type == "cpu":
-        return decode_stream_blocked_plain(
-            words, start_bit, total_bits, out_capacity, dt, window_words=CPU_WINDOW_WORDS,
-            sub_bits=CPU_SUB_BITS, out=out, stats=stats)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    window_words, sub_bits = card_shape(walk_bits(start_bit, total_bits, out_capacity, dt), dt)
-    return _launch(words, start_bit, total_bits, out_capacity, dt, window_words, sub_bits,
-                   out, stats)
+    with metrics.span("tt.walk"):
+        _check(words, start_bit, dt)
+        dev = words.device
+        if dev.type == "cpu":
+            return decode_stream_blocked_plain(
+                words, start_bit, total_bits, out_capacity, dt, window_words=CPU_WINDOW_WORDS,
+                sub_bits=CPU_SUB_BITS, out=out, stats=stats)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        window_words, sub_bits = card_shape(walk_bits(start_bit, total_bits, out_capacity, dt), dt)
+        return _launch(words, start_bit, total_bits, out_capacity, dt, window_words, sub_bits,
+                       out, stats)
 
 
 def _launch(words: torch.Tensor, start_bit: int, total_bits: int, out_capacity: int | None,
@@ -233,27 +235,28 @@ def decode_stream_dev(words: torch.Tensor, args: torch.Tensor, out_slots: int, d
     kernel's shape is :func:`card_shape`'s for a walk of ``out_slots`` codes
     of the longest length; nothing waits for the device.
     """
-    _check_dev(words, args, out_slots, dt)
-    dev = words.device
-    if dev.type == "cpu":
-        return decode_stream_dev_plain(words, args, out_slots, dt)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    window_words, sub_bits = card_shape(out_slots * int(dt.table.max_len), dt)
-    threads = geometry(window_words, sub_bits)
-    out = torch.empty(out_slots, dtype=torch.uint8, device=dev)
-    info = torch.empty(3, dtype=torch.int64, device=dev)
-    words, args = words.contiguous(), args.contiguous()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _build.load().thc_stream_decode_dev(
-        dev.index, words.data_ptr(), words.numel(), args.data_ptr(), out_slots,
-        dt.l0.data_ptr(), dt.root_bits, dt.l1.data_ptr(), dt.l1.numel(),
-        int(dt.table.max_len), int(dt.table.min_len), threads, sub_bits,
-        min(OVERLAP_BITS, sub_bits), out.data_ptr(), info.data_ptr(), stream,
-    )
-    _build.check("thc_stream_decode_dev", err)
-    launches["stream_decode_dev"] += 1
-    return out, info
+    with metrics.span("tt.walk"):
+        _check_dev(words, args, out_slots, dt)
+        dev = words.device
+        if dev.type == "cpu":
+            return decode_stream_dev_plain(words, args, out_slots, dt)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        window_words, sub_bits = card_shape(out_slots * int(dt.table.max_len), dt)
+        threads = geometry(window_words, sub_bits)
+        out = torch.empty(out_slots, dtype=torch.uint8, device=dev)
+        info = torch.empty(3, dtype=torch.int64, device=dev)
+        words, args = words.contiguous(), args.contiguous()
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _build.load().thc_stream_decode_dev(
+            dev.index, words.data_ptr(), words.numel(), args.data_ptr(), out_slots,
+            dt.l0.data_ptr(), dt.root_bits, dt.l1.data_ptr(), dt.l1.numel(),
+            int(dt.table.max_len), int(dt.table.min_len), threads, sub_bits,
+            min(OVERLAP_BITS, sub_bits), out.data_ptr(), info.data_ptr(), stream,
+        )
+        _build.check("thc_stream_decode_dev", err)
+        launches["stream_decode_dev"] += 1
+        return out, info
 
 
 def decode_stream_dev_plain(words: torch.Tensor, args: torch.Tensor, out_slots: int, dt):

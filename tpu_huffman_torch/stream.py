@@ -61,6 +61,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from . import metrics
 from .errors import ShortBufferError, UnknownSymbolError
 from .ops import pack_encode, selfsync
 from .ops.bitpack import (MASK32, download, merge_words, slide_words, stage_words,
@@ -74,7 +75,7 @@ BULK_DECODE_THRESHOLD = 65536
 
 _TILE = pack_encode.TILE  # symbols per count tile
 # fused encode_chunk calls whose words outgrew the first download
-encode_outcomes = {"second_downloads": 0}
+encode_outcomes = metrics.register("stream.encode_outcomes", {"second_downloads": 0})
 
 
 @dataclasses.dataclass
@@ -167,10 +168,12 @@ class HuffmanEncoder:
         docstring); a call whose budget the carry alone spends, or with no
         symbols, runs on the host.
         """
-        symbols, writable = self._staged(data, capacity)
-        if symbols.size and (writable is None or writable > self._carry_len):
-            return self._encode_fused(symbols, writable)
-        return self._encode_host(symbols, writable)
+        metrics.calls["stream.encode_chunk"] += 1
+        with metrics.span("tt.stream.encode_chunk"):
+            symbols, writable = self._staged(data, capacity)
+            if symbols.size and (writable is None or writable > self._carry_len):
+                return self._encode_fused(symbols, writable)
+            return self._encode_host(symbols, writable)
 
     def _staged(self, data, capacity: int | None) -> tuple[np.ndarray, int | None]:
         """The input's symbols, cut to those that can fit ``capacity``, and
@@ -279,15 +282,17 @@ class HuffmanEncoder:
         table's rate hint says (a second download fetches the rest)."""
         n = symbols.size
         carry_pat, carry_len = self._carry_pattern, self._carry_len
-        sym, dt, tile_bits, incl, scalars = self._count(symbols, writable)
+        with metrics.span("tt.encode.count"):
+            sym, dt, tile_bits, incl, scalars = self._count(symbols, writable)
         # the device-total pack's buffer: n codes of the longest length, the
         # carry and the pad (the download below is what the host fixes)
         n_words = -(-(n * int(self.table.max_len) + carry_len + 7) // 32)
-        words, _, _ = pack_encode.pack_device_total(
-            sym, dt, incl - tile_bits + carry_len, incl[-1:] + carry_len,
-            self.eos_padding & 0xFF, n_words)
-        if carry_len:
-            words[:1] |= _i32((carry_pat << (32 - carry_len)) & MASK32)
+        with metrics.span("tt.encode.pack"):
+            words, _, _ = pack_encode.pack_device_total(
+                sym, dt, incl - tile_bits + carry_len, incl[-1:] + carry_len,
+                self.eos_padding & 0xFF, n_words)
+            if carry_len:
+                words[:1] |= _i32((carry_pat << (32 - carry_len)) & MASK32)
         if writable is not None:
             k = writable // 32 + 2
         elif dt.encode_rate is None:
@@ -295,7 +300,8 @@ class HuffmanEncoder:
         else:
             k = (int(dt.encode_rate * n) + carry_len + 7) // 32 + 2
         k = min(k, n_words)
-        vals, (head,) = download(torch.cat(scalars), words_to_bytes(words[:k]))
+        with metrics.d2h(8 * len(scalars) + 4 * k):
+            vals, (head,) = download(torch.cat(scalars), words_to_bytes(words[:k]))
         known = self._check_known(symbols, vals, writable)
         total = vals[1]
         total_bits = total + carry_len
@@ -304,8 +310,9 @@ class HuffmanEncoder:
             out = head[:nbytes].tobytes()
             if nbytes > head.size:  # the rate hint fell short: the rest of the words
                 encode_outcomes["second_downloads"] += 1
-                out += words_to_bytes(words[k:-(-nbytes // 4)])[: nbytes - head.size].cpu(
-                ).numpy().tobytes()
+                with metrics.d2h(nbytes - head.size):
+                    out += words_to_bytes(words[k:-(-nbytes // 4)])[: nbytes - head.size].cpu(
+                    ).numpy().tobytes()
             if writable is None:
                 dt.encode_rate = selfsync.RATE_MARGIN * total / n
             self.reset()
@@ -323,8 +330,10 @@ class HuffmanEncoder:
         n = symbols.size
         if not n or (writable is not None and writable <= self._carry_len):
             return self._encode_host(symbols, writable)
-        sym, _dt, tile_bits, incl, scalars = self._count(symbols, writable)
-        vals = torch.cat(scalars).tolist()
+        with metrics.span("tt.encode.count"):
+            sym, _dt, tile_bits, incl, scalars = self._count(symbols, writable)
+        with metrics.d2h(8 * len(scalars)):
+            vals = torch.cat(scalars).tolist()
         known = self._check_known(symbols, vals, writable)
         offs, total_bits = incl - tile_bits, vals[1] + self._carry_len
         if known and (writable is None or total_bits <= writable):
@@ -343,12 +352,14 @@ class HuffmanEncoder:
         carry_pat, carry_len = self._carry_pattern, self._carry_len
         sym, offs = sym[:n], offs[: pack_encode.n_tiles(n)] + carry_len
         dt = DeviceTable.for_table(self.table, self.device)
-        pad_len = pack_encode.pad_code(total_bits, eos_padding)[1]
-        words, _ = pack_encode.pack(sym, dt, offs, total_bits, eos_padding & 0xFF,
-                                    -(-(total_bits + pad_len) // 32))
-        if carry_len:
-            words[:1] |= _i32((carry_pat << (32 - carry_len)) & MASK32)
-        return words_to_bytes(words)[: -(-total_bits // 8)].cpu().numpy().tobytes()
+        with metrics.span("tt.encode.pack"):
+            pad_len = pack_encode.pad_code(total_bits, eos_padding)[1]
+            words, _ = pack_encode.pack(sym, dt, offs, total_bits, eos_padding & 0xFF,
+                                        -(-(total_bits + pad_len) // 32))
+            if carry_len:
+                words[:1] |= _i32((carry_pat << (32 - carry_len)) & MASK32)
+        with metrics.d2h(-(-total_bits // 8)):
+            return words_to_bytes(words)[: -(-total_bits // 8)].cpu().numpy().tobytes()
 
 
 class _DeviceRemainder:
@@ -387,9 +398,10 @@ class _DeviceRemainder:
                 self._ensure_capacity(1)
             return
         nb = self.nbytes
-        up = stage_words(stage_bytes(new, self.dev))
-        self._ensure_capacity(nb // 4 + up.numel() + 1)  # +1: the shift's spill word
-        merge_words(self.buf, up, nb // 4, 8 * (nb % 4))
+        with metrics.span("tt.stage.upload"):
+            up = stage_words(stage_bytes(new, self.dev))
+            self._ensure_capacity(nb // 4 + up.numel() + 1)  # +1: the shift's spill word
+            merge_words(self.buf, up, nb // 4, 8 * (nb % 4))
         self.nbytes = nb + new.size
 
     def truncate(self, nbytes: int) -> None:
@@ -420,8 +432,9 @@ class _DeviceRemainder:
             return np.zeros(0, np.uint8), self.consumed_bit & 7
         start_byte = self.consumed_bit >> 3
         w = start_byte // 4
-        raw = words_to_bytes(self.buf[w : -(-self.nbytes // 4)])
-        data = raw[start_byte - 4 * w : self.nbytes - 4 * w].cpu().numpy().copy()
+        with metrics.d2h(self.nbytes - start_byte):
+            raw = words_to_bytes(self.buf[w : -(-self.nbytes // 4)])
+            data = raw[start_byte - 4 * w : self.nbytes - 4 * w].cpu().numpy().copy()
         return data, self.consumed_bit & 7
 
 
@@ -476,19 +489,21 @@ class HuffmanDecoder:
         """Decode; stops after ``capacity`` symbols (done=False) or when the
         input is exhausted (done=True). Takes all of ``data`` into the
         retained stream either way."""
-        if capacity is not None and int(capacity) < 0:
-            raise ValueError(f"capacity must be >= 0, got {capacity}")
-        rem = self._rem
-        rem.compact()  # decided on the host, before the append (as the JAX package's)
-        old_nbytes = rem.nbytes
-        rem.append(_as_u8(data))
-        try:
-            out, end_bit, more = self._drain(None if capacity is None else int(capacity))
-        except UnknownSymbolError:
-            rem.truncate(old_nbytes)
-            raise
-        rem.consumed_bit = end_bit
-        return DecodeResult(out, not more)
+        metrics.calls["stream.decode_chunk"] += 1
+        with metrics.span("tt.stream.decode_chunk"):
+            if capacity is not None and int(capacity) < 0:
+                raise ValueError(f"capacity must be >= 0, got {capacity}")
+            rem = self._rem
+            rem.compact()  # decided on the host, before the append (as the JAX package's)
+            old_nbytes = rem.nbytes
+            rem.append(_as_u8(data))
+            try:
+                out, end_bit, more = self._drain(None if capacity is None else int(capacity))
+            except UnknownSymbolError:
+                rem.truncate(old_nbytes)
+                raise
+            rem.consumed_bit = end_bit
+            return DecodeResult(out, not more)
 
     def _drain(self, capacity: int | None) -> tuple[bytes, int, bool]:
         rem = self._rem
@@ -499,12 +514,15 @@ class HuffmanDecoder:
             out, end_bit, more, self._rate = selfsync.fused_drain_words(
                 rem.buf, rem.nbytes, rem.consumed_bit, self.table, capacity, self._rate)
             return out, end_bit, more
-        view, start_bit, total_bits, base = selfsync.words_view(rem.buf, rem.nbytes,
-                                                                rem.consumed_bit)
-        syms, end_bit, more = selfsync.decode_tail(
-            view, start_bit, total_bits, capacity, DeviceTable.for_table(self.table, self.device)
-        )
-        return syms.cpu().numpy().tobytes(), base + end_bit, more
+        with metrics.span("tt.walk"):
+            view, start_bit, total_bits, base = selfsync.words_view(rem.buf, rem.nbytes,
+                                                                    rem.consumed_bit)
+            syms, end_bit, more = selfsync.decode_tail(
+                view, start_bit, total_bits, capacity,
+                DeviceTable.for_table(self.table, self.device))
+        with metrics.d2h(syms.numel()):
+            out = syms.cpu().numpy().tobytes()
+        return out, base + end_bit, more
 
     def decode(self, data, capacity: int | None = None) -> bytes:
         """Reference-shaped decode: raises ShortBufferError(partial) when

@@ -24,13 +24,21 @@ Phases (any failure raises and the script exits non-zero):
        windows), and the HPACK stream of them (30-bit codes, level-1 LUT in
        global memory), each on pass 0 (segment-aligned entries) and on the
        fixpoint's converged pass, and in the three forms the stitch launches
-       (pass 0 with starts and blast, the patch with its code cap, a repair
-       with segment ids and dead lanes), on starts buffers filled with junk,
-       every live row 0 / NO_START past its count (the kernel writes whole
-       rows; a dead lane's syms row is left as allocated and zeroed on both
-       sides before the comparison); the stitched body and tail start
-       equal the fixpoint's (the random-byte stream, whose true chain meets
-       invalid windows, stays unresolved);
+       (pass 0 with starts and blast, the patch with its code cap, the
+       re-decode of the walked segments with segment ids and dead lanes,
+       or a repair of R_MAX segments where the stitch walked none), on
+       starts and row buffers filled with junk, every live row 0 /
+       NO_START past its count (the kernel writes whole rows; a dead
+       lane's syms row is left as it was and zeroed on both sides before
+       the comparison); the stitched body and tail start equal the
+       fixpoint's (the random-byte stream, whose true chain meets invalid
+       windows, stays unresolved);
+     - the stitch's walk (phase_walk) on an 8 MiB object of the
+       benchmark's canterbury class, whose zero runs keep runs of segments
+       out of phase: claims and kept walks against its plain version, the
+       walked stitch against the fixpoint, the walk alone beside its bound
+       and its plain version, and that object's decode in turns with the
+       fixpoint path (wall and device ms, launches, outcomes, host syncs);
      - stream_decode (one block walking the stream in shared-memory
        windows) against both plain versions, the blocked one (symbols, n,
        end bit, status and the windows and sync rounds) and the serial one:
@@ -62,9 +70,9 @@ Phases (any failure raises and the script exits non-zero):
      bytes and the HPACK table at 8 MiB of header text; the decoded bytes
      equal the input, and the encoded bytes and index equal the plain
      version's; each encode makes exactly one count and one pack launch;
-     each decode takes the stitch (2 selfsync_decode launches,
-     3 with a repair, never the fixpoint), its launches and repaired
-     segments printed;
+     each decode takes the stitch (2 selfsync_decode launches, 4 with
+     a walk and its re-decode, never the fixpoint), its launches and
+     unresolved and walked segments printed;
   5. timings with CUDA events at 8 MiB: each kernel's wrapper beside its
      plain version (prof.median_ms: median of 11 samples of 5 calls after
      a warm-up), each kernel alone by torch.profiler (the pack at
@@ -241,6 +249,11 @@ BF16_FLOPS_PER_S = 989e12  # dense tensor-core bf16 (NVIDIA's data sheet)
 # the card's SMs at its top SM clock (main() sets it from the card; this
 # is the H100 SXM's 132 SMs at 1980 MHz).
 SMEM_LOOKUPS_PER_S = 132 * 32 * 1980e6
+SM_HZ = 1980e6  # the top SM clock (main() sets it from the card)
+# The stitch's walk is one chain a thread: each step a dependent
+# shared-memory lookup and the shift after it, taken as 30 cycles.
+WALK_CYCLES_PER_LOOKUP = 30
+WALK_SEED = 4190002011  # the benchmark's seeds are this large
 # Integer operations per symbol in each kernel's loop body (a table gather,
 # shifts, compares, adds, the store), counted from the sources in csrc/.
 OPS_PER_SYMBOL = {"encode_count": 5, "encode_pack": 12, "chain_decode": 10,
@@ -490,9 +503,9 @@ def stitch_form(selfsync, args, kw, plain: bool = False):
     kernel writes every slot of a live lane), by the kernel or its plain
     version: its four outputs, then the starts and blast."""
     kw = dict(kw)
-    for key in ("starts", "blast"):
+    for key in ("starts", "blast", "syms_out"):
         if key in kw:
-            kw[key] = kw[key].new_full(kw[key].shape, JUNK)
+            kw[key] = kw[key].new_full(kw[key].shape, JUNK & (0xFF if key == "syms_out" else -1))
     fn = selfsync.decode_segments_plain if plain else selfsync.decode_segments
     return (*fn(*args, **kw), *(kw[k] for k in ("starts", "blast") if k in kw))
 
@@ -771,8 +784,10 @@ def phase_streaming(torch, tt, table, counters, dev, stream_mb: int = 64,
             if not all(out[loop][k] for k in needed):
                 raise AssertionError(f"streaming {loop} loop did not launch {needed}: {out[loop]}")
         total = {k: sum(out[loop][k] for loop in out) for k in out["encode"]}
-        # the by-value walk runs only on remainders of <= 64 KiB
-        if not all(v for k, v in total.items() if k != "stream_decode"):
+        # the by-value walk runs only on remainders of <= 64 KiB, and the
+        # fused drains repair in place of the stitch's walk
+        if not all(v for k, v in total.items()
+                   if k not in ("stream_decode", "selfsync_decode_walk")):
             raise AssertionError(f"a kernel of the streaming path never ran: {total}")
         for loop, times in ((f"encode_chunk, capacity {cap} bytes", enc_times),
                             (f"decode_chunk, {cap}-byte input chunks", feed_times),
@@ -890,8 +905,10 @@ def phase_protocol(torch, tt, table, counters, dev) -> None:
             c[0] for c in card["drain"]) != data:
         raise AssertionError("protocol check: decoded bytes differ from the input")
     # every bulk drain here is fused: the by-value walk takes only remainders
-    # of <= 1024 bytes, which these chunks do not leave
-    if not all(v for k, v in launched.items() if k != "stream_decode"):
+    # of <= 1024 bytes, which these chunks do not leave, and the fused drains
+    # repair in place of the stitch's walk
+    if not all(v for k, v in launched.items()
+               if k not in ("stream_decode", "selfsync_decode_walk")):
         raise AssertionError(f"protocol check: a kernel did not run on the card: {launched}")
     print(f"phase 7 protocol, 256 KiB at 4 KiB chunks, words drains: {len(card['encode'])} "
           f"encode, {len(card['feed'])} feed and {len(card['drain'])} drain calls equal the "
@@ -1195,6 +1212,150 @@ def stream_case(torch, stream_decode, label, words, start_bit, total_bits, cap, 
           f"sync rounds "
           f"{tuple(st_k.tolist())})")
     return e, info, tuple(st_k.tolist()), threads
+
+
+def walk_lookups(selfsync, words, steps, table, first: int, entry: int, last: int,
+                 seg_bits: int) -> int:
+    """The lookups of the walk kernel's loop (walk_segment) from segment
+    ``first`` at ``entry`` to the end of segment ``last``, replayed on the
+    host: a step table lookup each step, and a code table lookup too where
+    the step is 0 or crosses the segment's end. ``words`` are the stream's
+    uint32 words, ``steps`` the walk table (a list)."""
+    k = selfsync.WALK_STEP_BITS
+    pos, lookups = first * seg_bits + entry, 0
+    for s in range(first, last + 1):
+        end = (s + 1) * seg_bits
+        while pos < end:
+            w = pos >> 5
+            pair = int(words[w]) << 32 | int(words[w + 1])
+            win = (pair << (pos & 31) >> 32) & 0xFFFFFFFF
+            step = steps[win >> (32 - k)]
+            lookups += 1
+            if step == 0 or pos + step > end:
+                step = table.decode_window(win)[1]
+                lookups += 1
+                if step == 0:  # an invalid window: the walk stops there
+                    return lookups
+            pos += step
+    return lookups
+
+
+def phase_walk(torch, tt, dev, mb: int = 8, seed: int = WALK_SEED) -> dict:
+    """The stitch's walk on the stream it is for: an mb MiB object of the
+    benchmark's canterbury class (portbench.gen.canterbury_like and its
+    fitted table, 0x00 the 2-bit code 00), encoded on the card, whose zero
+    runs keep runs of segments out of phase. The walk kernel against its
+    plain version on the same tensors (claims and kept walks equal); the
+    stitch's body and tail start against the fixpoint's; the walk alone
+    (torch.profiler) beside its bound, the lookups of the kept walk with
+    the most (walk_lookups) at WALK_CYCLES_PER_LOOKUP cycles each, and its
+    plain version; then tt.decode of the object in
+    turns with the fixpoint path (the stitch left out): wall ms, device ms,
+    launches, outcomes and host syncs a call."""
+    from portbench import gen
+    from tpu_huffman_torch.ops import selfsync
+    from tpu_huffman_torch.ops.bitpack import stage_words
+    from tpu_huffman_torch.ops.encode import DeviceTable
+    from tpu_huffman_torch.prof import max_abs_err, median_ms
+
+    table = tt.HuffmanTable.from_tsv_file(
+        os.path.join(ROOT, "portbench", "configs", "canterbury.tsv"))
+    data = gen.canterbury_like(mb * MIB, seed, 0).tobytes()
+    enc = tt.encode(data, table, device=dev)
+    words = stage_words(torch.frombuffer(bytearray(enc), dtype=torch.uint8).to(dev))
+    dt = DeviceTable.for_table(table, dev)
+    plan = selfsync._plan_segments(8 * len(enc), selfsync.SEG_WORDS)
+    n_segs, seg_bits = plan
+    max_syms = selfsync.max_symbols(table, seg_bits)
+    m = selfsync._merge(words, 0, plan, dt)
+    n_fail = int(m.fail.sum())
+    seg_ids = torch.nonzero(m.fail)[:, 0].to(torch.int32)
+    args = (words, seg_ids, m.entries1, m.exits0, seg_bits, dt)
+    claim, ends = selfsync.walk_segments(*args)
+    plain = selfsync.walk_segments_plain(*args)
+    torch.cuda.synchronize()
+    err = max(max_abs_err(claim, plain[0]), max_abs_err(ends, plain[1]))
+    kept = [(s, e) for s, e in zip(seg_ids.tolist(), ends.tolist()) if e >= 0]
+    walked = claim >= 0
+    counts = selfsync.decode_segments(
+        words, claim, seg_bits, max_syms, dt,
+        seg_ids=torch.where(walked, torch.arange(n_segs, device=dev), -1).to(torch.int32))[1]
+    per_seg = counts.tolist()
+    symbols = max(sum(per_seg[s:e + 1]) for s, e in kept)
+    host_words = np.frombuffer(enc + bytes(8 - len(enc) % 4), dtype=">u4")
+    step_table = selfsync.walk_steps(dt).tolist()
+    entry_of = claim.tolist()
+    lookups = max(walk_lookups(selfsync, host_words, step_table, table, s, entry_of[s], e,
+                               seg_bits) for s, e in kept)
+    print(f"phase 2 selfsync walk, canterbury {mb} MiB (seed {seed}): max_abs_err {err} "
+          f"(claims and kept walks; {n_segs} segments, {n_fail} unresolved, {len(kept)} runs "
+          f"kept, {int(walked.sum())} segments walked, longest run "
+          f"{max(e - s + 1 for s, e in kept)} segments, longest walk {symbols} symbols in "
+          f"{lookups} lookups at most)")
+    if err:
+        raise AssertionError(f"the walk kernel differs from its plain version: {err}")
+    stitched = selfsync.stitch(words, 0, plan, dt)
+    syms_f, counts_f, exits_f, _bad, _entries, passes = selfsync._fixpoint(
+        words, n_segs, seg_bits, 0, max_syms, dt)
+    if stitched is None or not (
+            torch.equal(stitched[0], selfsync._body(syms_f, counts_f))
+            and stitched[1] == n_segs * seg_bits + int(exits_f[-1]) - seg_bits):
+        raise AssertionError("the walked stitch differs from the fixpoint's chain")
+    print(f"phase 2 stitch canterbury {mb} MiB: walked; body ({stitched[0].numel()} symbols) "
+          f"and tail start equal the fixpoint's ({passes} passes)")
+
+    # the walk alone, its bound, the plain version's time
+    walk_fn = lambda: selfsync.walk_segments(*args)  # noqa: E731
+    k1, k2 = median_ms(walk_fn), median_ms(walk_fn)
+    alone = _profiled_kernel_ms(torch, {"selfsync_walk": walk_fn}).get("selfsync_walk")
+    plain_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        selfsync.walk_segments_plain(*args)
+        torch.cuda.synchronize()
+        plain_s.append(time.perf_counter() - t0)
+    bound_ms = lookups * WALK_CYCLES_PER_LOOKUP / SM_HZ * 1e3
+    res = {"ms": min(k1, k2), "alone_ms": alone, "plain_ms": statistics.median(plain_s) * 1e3,
+           "bound_ms": bound_ms, "bound_by": f"{lookups} dependent lookups", "lanes": n_fail,
+           "runs": len(kept), "segments_walked": int(walked.sum()), "max_abs_err": err}
+    print(f"phase 2 selfsync walk alone: kernel {k1:.4f} / {k2:.4f} ms (alone "
+          + (f"{alone:.4f}" if alone is not None else "not measured")
+          + f"), plain {res['plain_ms']:.1f} ms, bound {bound_ms:.4f} ms ({lookups} lookups x "
+          f"{WALK_CYCLES_PER_LOOKUP} cycles at {SM_HZ / 1e6:.0f} MHz)")
+
+    # tt.decode end to end, in turns with the fixpoint path
+    def decode():
+        return tt.decode(enc, table, device=dev)
+
+    if decode() != data:
+        raise AssertionError("decode of the canterbury stream differs")
+    launches0, outcomes0 = dict(selfsync.launches), dict(selfsync.outcomes)
+    walk_ms = _median_wall_ms(torch, decode)
+    calls = REPS + 1
+    res["per_call"] = {
+        **{k: (v - launches0[k]) / calls for k, v in selfsync.launches.items()},
+        **{k: (v - outcomes0[k]) / calls for k, v in selfsync.outcomes.items()}}
+    res["host_syncs_per_decode"] = (len(sync_sites(torch, decode))
+                                    - len(sync_sites(torch, lambda: None)))
+    res["decode_device_ms"] = sum(_device_ms_by_kernel(torch, decode).values())
+    real_stitch = selfsync.stitch
+    selfsync.stitch = lambda *a, **kw: None
+    try:
+        fix_ms = _median_wall_ms(torch, decode)
+        fix_busy = sum(_device_ms_by_kernel(torch, decode).values())
+    finally:
+        selfsync.stitch = real_stitch
+    walk_ms2 = _median_wall_ms(torch, decode)
+    res.update(decode_ms=min(walk_ms, walk_ms2), fixpoint_decode_ms=fix_ms,
+               fixpoint_device_ms=fix_busy)
+    print(f"phase 2 decode of the canterbury {mb} MiB stream, in turns: walk {walk_ms:.3f}, "
+          f"fixpoint {fix_ms:.3f}, walk {walk_ms2:.3f} ms wall; device "
+          f"{res['decode_device_ms']:.4f} / {fix_busy:.4f} ms; {res['host_syncs_per_decode']} "
+          f"host syncs; a call: {res['per_call']}")
+    if res["per_call"]["fixpoint"]:
+        raise AssertionError("decode of the canterbury stream fell back to the fixpoint")
+    return res
 
 
 def phase_stream_checks(torch, tt, dev, data8: bytes, enc_static: bytes) -> int:
@@ -2538,6 +2699,8 @@ def main() -> int:
         capture_output=True, text=True, check=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     SMEM_LOOKUPS_PER_S = sms * 32 * sm_mhz * 1e6
+    global SM_HZ
+    SM_HZ = sm_mhz * 1e6
     print(f"{sms} SMs, top SM clock {sm_mhz:.0f} MHz: shared-memory lookups bound at "
           f"{SMEM_LOOKUPS_PER_S:.4g} a second (32 lanes x 4 B a cycle an SM)")
     t0 = time.perf_counter()
@@ -2682,9 +2845,11 @@ def main() -> int:
         stitch_shapes[name] = calls
         foreign[name] = (dt, words, n_segs, seg_bits, max_syms, entries, len(enc))
 
+    walk_row = phase_walk(torch, tt, dev)
     errs["stream_decode"] = phase_stream_checks(torch, tt, dev, data8, enc_static)
     dev_row = phase_stream_dev(torch, tt, dev, data8, enc_static)
-    errs["selfsync_decode"] = max(errs["selfsync_decode"], *stitch_errs.values())
+    errs["selfsync_decode"] = max(errs["selfsync_decode"], *stitch_errs.values(),
+                                  walk_row["max_abs_err"])
     if any(errs.values()):
         raise AssertionError(f"kernels differ from their plain versions: {errs}, stitch forms "
                              f"{stitch_errs}")
@@ -2784,8 +2949,9 @@ def main() -> int:
         secs = time.perf_counter() - t0
         ran = {k: v - before[k] for k, v in selfsync.launches.items()}
         ends = {k: v - ends[k] for k, v in selfsync.outcomes.items()}
-        if ends["fixpoint"] or ran["selfsync_decode"] != 2 + ends["repaired"] or (
-                ran["selfsync_decode_repair"] != ends["repaired"]):
+        walks = ends["repaired"] + ends["walked"]  # a walk and a re-decode each
+        if (ends["fixpoint"] or ran["selfsync_decode"] != 2 + 2 * walks
+                or ran["selfsync_decode_repair"] != walks or ran["selfsync_decode_walk"] != walks):
             raise AssertionError(f"{name}: decode did not take the stitch: launches {ran}, "
                                  f"outcomes {ends}")
         foreign_runs.append((name, out, secs, ran, ends))
@@ -2815,7 +2981,8 @@ def main() -> int:
         print(f"phase 4 {name}: round trip ok, {len(data)} -> {len(enc)} bytes, "
               f"max code {idx.max_code_len}, {secs * 1e3:.1f} ms first call; "
               f"decode ok through the stitch, selfsync_decode launches {ran}, "
-              f"{ends['segments_repaired']} segments repaired, {f_secs * 1e3:.1f} ms first call")
+              f"{ends['segments_repaired']} segments unresolved, {ends['segments_walked']} "
+              f"walked, {f_secs * 1e3:.1f} ms first call")
 
     # ---- 5. timings at 8 MiB ---------------------------------------------
     dt, offs, total, n_words, words, block_offs, nsyms, out_start = shapes[static.name, 256]
@@ -2925,6 +3092,7 @@ def main() -> int:
               + (f"{alone:.4f}" if alone is not None else "not measured")
               + f"), plain {p1:.4f} / {p2:.4f} ms, bound {bound_ms:.6f} ms by {bound_by} "
               f"({forms[form]['lanes']} lanes, {forms[form]['symbols']} symbols)")
+    forms["walk"] = walk_row
     stream_walks = phase_stream_timing(torch, dev)
     crossover = phase_stream_crossover(torch, tt, static, dev)
     forms["store_design_ms"] = phase_store_design(

@@ -195,9 +195,14 @@ def test_arguments_checked(tables):
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
     """The segment and stream kernels equal their plain versions on the same
-    CUDA tensors."""
+    CUDA tensors; so does the stitch's walk, on an 8 MiB object of the
+    benchmark's canterbury class, whose zero runs keep segments out of
+    phase."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    import os
+
+    from portbench import gen
     from tpu_huffman_torch.ops import stream_decode
 
     dev = torch.device("cuda")
@@ -216,3 +221,17 @@ def test_kernels_match_plain_on_card():
         want = stream_decode.decode_stream_plain(words, 3, 8 * 4096, cap, dt)
         n = int(want[1][0])  # symbols past n are unspecified
         assert torch.equal(got[1], want[1]) and torch.equal(got[0][:n], want[0][:n])
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    ct = tt.HuffmanTable.from_tsv_file(os.path.join(root, "portbench", "configs",
+                                                    "canterbury.tsv"))
+    enc = tt.encode(gen.canterbury_like(8 << 20, 4190002011, 0).tobytes(), ct, device=dev)
+    words = _words(enc).to(dev)
+    dt = DeviceTable.for_table(ct, dev)
+    plan = selfsync._plan_segments(8 * len(enc), selfsync.SEG_WORDS)
+    m = selfsync._merge(words, 0, plan, dt)
+    n_fail = int(m.fail.sum())
+    seg_ids = torch.nonzero(m.fail)[:, 0].to(torch.int32)
+    args = (words, seg_ids, m.entries1, m.exits0, plan[1], dt)
+    claim, ends = selfsync.walk_segments(*args)
+    want_claim, want_ends = selfsync.walk_segments_plain(*args)
+    assert n_fail and torch.equal(claim, want_claim) and torch.equal(ends, want_ends)

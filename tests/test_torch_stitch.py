@@ -62,7 +62,7 @@ def _stream(kind, n, seed, start_bit=0):
     return ref, t, data, np.packbits(bits.astype(np.uint8)).tobytes()
 
 
-ENDS = ("stitched", "repaired", "fixpoint")
+ENDS = ("stitched", "repaired", "walked", "fixpoint")
 
 
 def _outcomes():
@@ -123,17 +123,19 @@ def _jax_stitch(ref, words, start_bit, plan, dt):
     ("gap", 32, 32, False, "stitched"),
     ("gap", 4, 32, False, "stitched"),
     ("gap", 32, 4, False, "repaired"),
-    ("static", 4, 32, False, None),
-    ("hpack", 32, 4, False, None),
+    ("static", 4, 32, False, "walked"),
+    ("hpack", 32, 4, False, "repaired"),
     ("static", 32, 32, True, None),
 ], ids=["static-32", "hpack-32", "gap-32", "gap-4", "gap-32-patch4", "static-4-unsynced",
         "hpack-32-patch4-too-many", "static-32-corrupt"])
 def test_stitch_matches_jax_stitch_fast(monkeypatch, kind, seg_words, patch, corrupt, want):
     """(body, tail start), or None, equal _stitch_fast's on the same pass
-    outputs, at its failure limit max(64, S >> 5)."""
+    outputs, at its failure limit max(64, S >> 5). Where _stitch_fast gives
+    up (a repaired exit that differs from the full pass's, more failures
+    than it repairs), the port's walk resolves the stream: its body is the
+    plaintext's prefix and the fixpoint's converged body."""
     monkeypatch.setattr(selfsync, "PATCH_SYMS", patch)
     monkeypatch.setattr(jax_selfsync, "PATCH_SYMS", patch)
-    monkeypatch.setattr(selfsync, "R_MAX", 64)
     start_bit = 3
     ref, t, data, enc = _stream(kind, {"static": 48_000, "hpack": 64_000, "gap": 200_000}[kind],
                                 seg_words + patch, start_bit)
@@ -151,7 +153,14 @@ def test_stitch_matches_jax_stitch_fast(monkeypatch, kind, seg_words, patch, cor
         assert theirs is None
         return
     body, tail_start, total, cut = got
-    assert (body.numpy().tobytes(), tail_start) == theirs
+    if theirs is None:
+        n_segs, seg_bits = plan
+        syms, counts, exits, _bad, _entries, _passes = selfsync._fixpoint(
+            words, n_segs, seg_bits, start_bit, selfsync.max_symbols(t, seg_bits), dt)
+        assert torch.equal(body, selfsync._body(syms, counts))
+        assert tail_start == n_segs * seg_bits + int(exits[-1]) - seg_bits
+    else:
+        assert (body.numpy().tobytes(), tail_start) == theirs
     assert total == body.numel() and cut is None
     assert body.numpy().tobytes() == data[:total]
     assert tail_start == start_bit + int(_first_symbols(t, data)[total])
@@ -256,19 +265,40 @@ def test_new_forms_arguments_checked():
             selfsync.decode_segments(words, entries, 128, 10, dt, **kw)
 
 
+@pytest.mark.parametrize("kind", ["static", "hpack", "gap"])
+def test_walk_steps_are_the_whole_codes_of_a_window(kind):
+    """The walk kernel's second table: for each value of a window's top
+    WALK_STEP_BITS bits, the bits of the codes whole in them, decoded one
+    by one from the first; a walk over them leaves the chain as it is."""
+    _ref, t, _rng = _tables(kind)
+    k = selfsync.WALK_STEP_BITS
+    steps = selfsync.walk_steps(DeviceTable.for_table(t, CPU)).tolist()
+    for value in range(1 << k):
+        pos = 0
+        while True:
+            _sym, n = t.decode_window(((value << pos) & ((1 << k) - 1)) << (32 - k))
+            if n == 0 or pos + n > k:
+                break
+            pos += n
+        assert steps[value] == pos
+
+
 # --- decode and the words drains: stitched, repaired, fell back --------------
 
 
-MODES = {  # (PATCH_SYMS, R_MAX): the stitch resolves alone, repairs, gives up
-    "stitched": (32, 256),
-    "repaired": (2, 256),
-    "fixpoint": (2, 1),
+MODES = {  # (PATCH_SYMS, WALK_LANES, R_MAX): the stitch resolves alone, repairs, gives up
+    "stitched": (32, selfsync.WALK_LANES, 256),
+    "repaired": (2, selfsync.WALK_LANES, 256),
+    "fixpoint": (2, 0, 1),
 }
 
 
 def _set_mode(monkeypatch, mode):
-    patch, r_max = MODES[mode]
+    """The stitch's fallback is forced by the walk's lane cap; the fused
+    drain's own repair, which the streaming entries try first, by R_MAX."""
+    patch, walk_lanes, r_max = MODES[mode]
     monkeypatch.setattr(selfsync, "PATCH_SYMS", patch)
+    monkeypatch.setattr(selfsync, "WALK_LANES", walk_lanes)
     monkeypatch.setattr(selfsync, "R_MAX", r_max)
     monkeypatch.setattr(tstream, "BULK_DECODE_THRESHOLD", 64)
 
@@ -344,6 +374,176 @@ def test_capped_cut_matches_sequential(monkeypatch, where):
         assert end_bit // seg_bits in repaired_ids
     syms, info = stream_decode.decode_stream_plain(
         _words(enc), 0, 8 * len(enc), cap, DeviceTable.for_table(t, CPU))
+    n, s_end, status = info.tolist()
+    assert got == (syms[:n].numpy().tobytes(), s_end, status == stream_decode.STATUS_OUTPUT_FULL)
+    o_out, _used, _done = oracle.OracleDecoder(oracle.OracleTable(ref)).decode_chunk(enc, cap)
+    assert out == o_out == data[:cap] and more
+
+
+# --- the walk: runs of out-of-phase segments ----------------------------------
+
+# codes 00 (symbol 0), 01, 100, 101, 110, 111: in a run of symbol 0 a chain
+# keeps its bit's parity, so a run entered at an odd bit is out of phase with
+# the full pass's chains, which enter each segment at bit 0
+PHASE_SPECS = [(0, 2, 0b00), (1, 2, 0b01), (2, 3, 0b100), (3, 3, 0b101), (4, 3, 0b110),
+               (5, 3, 0b111)]
+PHASE_SEG_WORDS = 4
+PHASE_SEG_BITS = 32 * PHASE_SEG_WORDS
+# zero runs from segments 5, 12, 20 and 40 to the middle of 1, 2, 6 and 3 segments on
+PHASE_RUNS = [(5, 1), (12, 2), (20, 6), (40, 3)]
+
+
+def _phase_stream(zero_runs=PHASE_RUNS, n_segs=60, seed=1):
+    """(JAX table, port table, plaintext, its codes): random symbols 1-5 for
+    ``n_segs`` segments of PHASE_SEG_BITS, and for each (segment, span) of
+    ``zero_runs`` symbol 0 from an odd bit in the last quarter of that
+    segment to the middle of segment + span; the codes fill whole bytes."""
+    g = np.random.default_rng(seed)
+    lengths = {sym: n for sym, n, _code in PHASE_SPECS}
+    out, bit = [], 0
+
+    def put(sym):
+        nonlocal bit
+        out.append(sym)
+        bit += lengths[sym]
+
+    for seg, span in zero_runs:
+        while bit < seg * PHASE_SEG_BITS + 3 * PHASE_SEG_BITS // 4:
+            put(int(g.integers(1, 6)))
+        if bit % 2 == 0:
+            put(2)
+        while bit < (seg + span) * PHASE_SEG_BITS + PHASE_SEG_BITS // 2:
+            put(0)
+    while bit < n_segs * PHASE_SEG_BITS:
+        put(int(g.integers(1, 6)))
+    while bit % 8:  # whole bytes: no padding bits to decode
+        put(2 if bit % 2 else 1)
+    ref = th.HuffmanTable.from_specs([th.CodeSpec(*c) for c in PHASE_SPECS], name="phase")
+    t = tt.HuffmanTable.from_specs([tt.CodeSpec(*c) for c in PHASE_SPECS], name="phase")
+    data = bytes(out)
+    return ref, t, data, th.encode(data, ref)
+
+
+def _runs(words, plan, dt):
+    """(runs, failures): the out-of-phase runs from the fixpoint's chain,
+    (first segment, length) for each failed segment of the merge that no
+    earlier run holds, up to the first segment whose true exit is the full
+    pass's (or the last); and the merge's failed segments."""
+    n_segs, seg_bits = plan
+    m = selfsync._merge(words, 0, plan, dt)
+    exits = selfsync._fixpoint(words, n_segs, seg_bits, 0,
+                               selfsync.max_symbols(dt.table, seg_bits), dt)[2]
+    fail, ex0, ex = m.fail.tolist(), m.exits0.tolist(), exits.tolist()
+    runs, k = [], 0
+    while k < n_segs:
+        if fail[k]:
+            e = k
+            while ex[e] != ex0[e] and e + 1 < n_segs:
+                e += 1
+            runs.append((k, e - k + 1))
+            k = e
+        k += 1
+    return runs, sum(fail)
+
+
+def _walks():
+    return {k: selfsync.outcomes[k] for k in (*ENDS, "segments_repaired", "segments_walked")}
+
+
+def test_walk_resolves_runs_of_out_of_phase_segments():
+    """Runs of 1, 2, 6 and 3 out-of-phase segments decode through the walk
+    to the oracle's bytes, with no fallback; the segments walked are the
+    runs' total."""
+    ref, t, data, enc = _phase_stream()
+    words = _words(enc)
+    plan = selfsync._plan_segments(8 * len(enc), PHASE_SEG_WORDS)
+    runs, n_fail = _runs(words, plan, DeviceTable.for_table(t, CPU))
+    assert sorted(n for _s, n in runs) == [1, 2, 3, 6]
+    before = _walks()
+    got = selfsync.selfsync_decode(enc, t, seg_words=PHASE_SEG_WORDS, device=CPU)
+    delta = {k: v - before[k] for k, v in _walks().items()}
+    assert got == data == oracle.oracle_decode(enc, ref)
+    assert delta == {"stitched": 0, "repaired": 0, "walked": 1, "fixpoint": 0,
+                     "segments_repaired": n_fail, "segments_walked": sum(n for _s, n in runs)}
+
+
+def test_a_failure_inside_a_run_is_left_to_the_earlier_walk(monkeypatch):
+    """A segment inside the six-segment run marked failed too: its walk,
+    started from the full pass's chain, is dropped, the earlier one gives
+    the segments their entries, and the bytes are the oracle's."""
+    ref, t, data, enc = _phase_stream()
+    words = _words(enc)
+    plan = selfsync._plan_segments(8 * len(enc), PHASE_SEG_WORDS)
+    runs, n_fail = _runs(words, plan, DeviceTable.for_table(t, CPU))
+    first, length = next(r for r in runs if r[1] == 6)
+    inside = first + 2
+    merge, walk = selfsync._merge, selfsync.walk_segments
+    seen = []
+
+    def merge_failing_inside(*args, **kw):
+        m = merge(*args, **kw)
+        assert not bool(m.fail[inside])
+        m.fail[inside] = True
+        return m
+
+    def spy(words, seg_ids, *args):
+        got = walk(words, seg_ids, *args)
+        seen.append((seg_ids.tolist(), got[1].tolist()))
+        return got
+
+    monkeypatch.setattr(selfsync, "_merge", merge_failing_inside)
+    monkeypatch.setattr(selfsync, "walk_segments", spy)
+    before = _walks()
+    got = selfsync.selfsync_decode(enc, t, seg_words=PHASE_SEG_WORDS, device=CPU)
+    delta = {k: v - before[k] for k, v in _walks().items()}
+    assert got == data == oracle.oracle_decode(enc, ref)
+    ((seg_ids, ends),) = seen
+    assert ends[seg_ids.index(first)] == first + length - 1 and ends[seg_ids.index(inside)] == -1
+    assert delta["walked"] == 1 and delta["fixpoint"] == 0
+    assert delta["segments_repaired"] == n_fail + 1
+    assert delta["segments_walked"] == sum(n for _s, n in runs)
+
+
+def test_a_run_into_the_last_segment_gives_the_tail_its_walked_exit():
+    """A zero run past the kernel segments: the last walk ends at the last
+    segment, out of phase with the full pass, and the tail starts at that
+    walk's exit, the true chain's bit."""
+    ref, t, data, enc = _phase_stream([(12, 2), (50, 30)], n_segs=70)
+    words = _words(enc)
+    plan = selfsync._plan_segments(8 * len(enc), PHASE_SEG_WORDS)
+    n_segs, seg_bits = plan
+    dt = DeviceTable.for_table(t, CPU)
+    runs, _n_fail = _runs(words, plan, dt)
+    assert runs[-1][0] + runs[-1][1] == n_segs
+    exits0 = selfsync._merge(words, 0, plan, dt).exits0
+    before = _walks()
+    body, tail_start, total, _cut = selfsync.stitch(words, 0, plan, dt)
+    assert selfsync.outcomes["walked"] == before["walked"] + 1
+    assert body.numpy().tobytes() == data[:total]
+    assert tail_start == int(_first_symbols(t, data)[total])
+    assert tail_start != (n_segs - 1) * seg_bits + int(exits0[-1])
+    assert selfsync.selfsync_decode(enc, t, seg_words=PHASE_SEG_WORDS,
+                                    device=CPU) == data == oracle.oracle_decode(enc, ref)
+
+
+def test_capped_cut_inside_a_walked_segment():
+    """A capacity cut in the middle of the six-segment run: (symbols,
+    end_bit, more) equal the sequential decode's with the same budget, and
+    the bytes the oracle's."""
+    ref, t, data, enc = _phase_stream()
+    words = _words(enc)
+    plan = selfsync._plan_segments(8 * len(enc), PHASE_SEG_WORDS)
+    runs, _n_fail = _runs(words, plan, DeviceTable.for_table(t, CPU))
+    first, _length = next(r for r in runs if r[1] == 6)
+    starts = _first_symbols(t, data)
+    cap = int(np.searchsorted(starts, (first + 3) * PHASE_SEG_BITS + 40))
+    before = _walks()
+    got = selfsync.selfsync_decode_capped(enc, t, cap, seg_words=PHASE_SEG_WORDS, device=CPU)
+    assert selfsync.outcomes["walked"] == before["walked"] + 1
+    out, end_bit, more = got
+    assert end_bit // PHASE_SEG_BITS == first + 3
+    syms, info = stream_decode.decode_stream_plain(
+        words, 0, 8 * len(enc), cap, DeviceTable.for_table(t, CPU))
     n, s_end, status = info.tolist()
     assert got == (syms[:n].numpy().tobytes(), s_end, status == stream_decode.STATUS_OUTPUT_FULL)
     o_out, _used, _done = oracle.OracleDecoder(oracle.OracleTable(ref)).decode_chunk(enc, cap)

@@ -60,6 +60,13 @@ SIGNATURES = {
         _I32, _P, _I64, _P, _P, _I64, _I32, _I32, _I32, _P, _I32, _P, _I64, _I32, _P,
         _P, _P, _P, _P, _P, _P,
     ),
+    # device, words, n_words, seg_ids, entries, n_lanes, exits0, n_segs,
+    # seg_bits, l0, root_bits, l1, l1_size, max_len, steps, ends, pairs, cap,
+    # counters, claim, stream
+    "thc_selfsync_walk": (
+        _I32, _P, _I64, _P, _P, _I32, _P, _I32, _I32, _P, _I32, _P, _I64, _I32, _P, _P, _P,
+        _I64, _P, _P, _P,
+    ),
     # device, words, n_words, start_bit, total_bits, out_capacity, l0,
     # root_bits, l1, l1_size, max_len, min_len, threads, sub_bits, overlap,
     # out, info, stats (or null), stream

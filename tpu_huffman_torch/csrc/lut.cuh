@@ -33,9 +33,11 @@ struct LutSmem {
   int l1_in_smem;
 };
 
-__host__ __device__ inline LutSmem lut_smem(int root_bits, long long l1_size) {
+// `reserve` bytes of the 48 KiB are kept for the caller's own tables.
+__host__ __device__ inline LutSmem lut_smem(int root_bits, long long l1_size,
+                                            long long reserve = 0) {
   const long long l0_bytes = 4LL << root_bits;
-  const int l1_in = l0_bytes + 4 * l1_size <= 48 * 1024;
+  const int l1_in = l0_bytes + 4 * l1_size + reserve <= 48 * 1024;
   return {(size_t)(l0_bytes + (l1_in ? 4 * l1_size : 0)), l1_in};
 }
 

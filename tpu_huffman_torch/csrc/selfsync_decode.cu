@@ -9,11 +9,13 @@
 // boundaries after a few symbols. Segment s's exit is segment s+1's true
 // entry once segment s's chain has joined, so ops/selfsync.py then runs a
 // short patch pass (a code cap) from those entries and stitches the patch's
-// head onto the full pass's tail; the few segments that do not join within
-// the patch are re-decoded whole by a repair launch (segment ids). The
-// fixpoint loop in ops/selfsync.py, which repeats the full pass until the
-// entries stop changing, is the fallback for the segments that cannot be
-// resolved so.
+// head onto the full pass's tail; from each of the few segments that do not
+// join within the patch, a walk (below, a kernel of its own with no TPU
+// counterpart) follows the true chain through the run of segments it
+// starts, and those segments are re-decoded whole by a launch with segment
+// ids. The fixpoint loop in ops/selfsync.py, which repeats the full pass
+// until the entries stop changing, is the fallback for the segments that
+// cannot be resolved so.
 //
 // Per thread, from the segment-relative int32 entry bit
 // (thc::segment_loop, decode_loop.cuh): per step it takes the 32-bit window
@@ -44,9 +46,10 @@
 //           TPU's patch counts an invalid 1-bit step as a slot; here it takes
 //           none. A patch that meets an invalid window has bad != 0 and its
 //           segment is unresolved either way.
-//   seg_ids int32 [T] (the repair launch, `_dense_repair`'s window gather):
-//           thread t decodes segment seg_ids[t] from entries[t]; a negative id
-//           is a dead lane that writes nothing.
+//   seg_ids int32 [T] (the re-decode of the walked segments, as
+//           `_dense_repair`'s window gather): thread t decodes segment
+//           seg_ids[t] from entries[t]; a negative id is a dead lane that
+//           writes nothing, so its rows keep what the caller's buffers held.
 //
 // Not carried over from the TPU kernel: the (8,128) lane tiles, the
 // entry-roll select tree over a staged window, reusing one window for M
@@ -55,6 +58,27 @@
 // (here the thread reads its segment's words where they lie). Those shape
 // vector registers and VMEM tiles; here each segment is an independent
 // thread reading its words through the cache.
+//
+// The walk (thc_selfsync_walk, selfsync_walk_kernel): one thread a failed
+// segment f of the stitch, f ascending by thread. From f's true entry it
+// follows the chain through f and on into the segments after it while its
+// exit differs from the full pass's, keeping only the chain's state (no
+// rows) and appending (segment, thread, entry) to a list for each segment it
+// crosses. It stops at an invalid window (the stitch then falls back) and at
+// the last segment. A failure inside an earlier walk started from the full
+// pass's wrong chain, and its walk can run on past that walk's end, so the
+// last block to finish keeps the walks in order, each that starts past the
+// last kept one's end (a scan over the threads' last segments, the warp
+// computing it together through shuffles), and writes the kept walks'
+// entries per segment. ops/selfsync.py re-decodes those segments and proves
+// the chain on the device. A walk is one serial chain, latency-bound (one
+// warp an SM: the threads are the few failed segments, so a block is one
+// warp, spread over the SMs), so it steps over every code that lies whole
+// in the window's top kWalkStepBits bits in one lookup of a second table
+// in shared memory (`steps`, ops/selfsync.py walk_steps): a run of the 2-bit
+// code of 0x00, which is what keeps a run of segments out of phase, goes
+// six codes a lookup. The single-code lookup takes the rest: a longer
+// code, an invalid window, the codes at the segment's end.
 //
 // Bound: stores first, then the serial chain. Rows lie `pitch` slots apart,
 // so one store a symbol (and one a start) made every warp store touch 32
@@ -99,6 +123,101 @@ __global__ void selfsync_decode_kernel(
       starts, counts, exits, bad, blast);
 }
 
+constexpr int kWalkThreads = 32;  // one warp: the last block's scan is a warp's
+constexpr int kWalkStepBits = 12;  // ops/selfsync.py WALK_STEP_BITS
+
+// The walk through one segment from `rel` to its exit (the first code
+// start at or past seg_bits); false at an invalid window, where the walk
+// stops. A group of whole codes ends at or before seg_bits, so each of
+// them starts before it, as a single step would have found.
+template <bool TwoLevel>
+__device__ __forceinline__ bool walk_segment(const thc::Lut& lut,
+                                             const uint8_t* __restrict__ steps,
+                                             thc::Cursor& cur, int& rel, int seg_bits) {
+  while (rel < seg_bits) {
+    cur.refill();  // leaves at least 33 bits: a step takes at most 32
+    const unsigned win = cur.window();
+    int step = steps[win >> (32 - kWalkStepBits)];
+    if (step == 0 || rel + step > seg_bits) {
+      int sym;
+      step = thc::lut_decode<TwoLevel>(lut, win, sym);
+      if (step == 0) return false;
+    }
+    rel += step;
+    cur.advance(step);
+  }
+  return true;
+}
+
+template <bool TwoLevel>
+__global__ void __launch_bounds__(kWalkThreads) selfsync_walk_kernel(
+    const unsigned* __restrict__ words, long long n_words,
+    const int* __restrict__ seg_ids, const int* __restrict__ entries, int n_lanes,
+    const int* __restrict__ exits0, int n_segs, int seg_bits,
+    const int* __restrict__ l0_g, int root_bits, const int* __restrict__ l1_g,
+    long long l1_size, int l1_in_smem, int lut_bytes, const int* __restrict__ steps_g,
+    int* ends, long long* pairs, long long cap, unsigned* counters,
+    int* __restrict__ claim) {
+  extern __shared__ int smem[];
+  int* steps_s = smem + lut_bytes / 4;
+  for (int i = threadIdx.x; i < (1 << kWalkStepBits) / 4; i += kWalkThreads)
+    steps_s[i] = steps_g[i];
+  const thc::Lut lut =
+      thc::stage_lut(smem, l0_g, root_bits, l1_g, l1_size, l1_in_smem);
+  const uint8_t* steps = reinterpret_cast<const uint8_t*>(steps_s);
+  const int lane = threadIdx.x;
+  const int t = blockIdx.x * kWalkThreads + lane;
+  if (t < n_lanes) {
+    int s = seg_ids[t];
+    int rel = entries[s];
+    thc::Cursor cur(words, n_words, (long long)s * seg_bits + rel);
+    for (;;) {
+      const unsigned long long p = atomicAdd(&counters[0], 1u);
+      if (p < (unsigned long long)cap)
+        pairs[p] = (long long)s << 32 | (long long)t << 8 | rel;
+      if (!walk_segment<TwoLevel>(lut, steps, cur, rel, seg_bits) || rel == exits0[s] ||
+          s + 1 >= n_segs)
+        break;
+      rel -= seg_bits;  // the cursor is already there
+      ++s;
+    }
+    ends[t] = s;
+  }
+  // the last block to finish (threadFenceReduction's pattern)
+  __threadfence();
+  __syncwarp();
+  unsigned done = 0;
+  if (lane == 0) done = atomicAdd(&counters[1], 1u);
+  if (__shfl_sync(0xffffffffu, done, 0) != gridDim.x - 1) return;
+  __threadfence();
+  // keep each walk that starts past the last kept one's end: every thread
+  // runs the same scan, thread j of a round reading walk base + j's bounds
+  int reach = -1;
+  for (int base = 0; base < n_lanes; base += kWalkThreads) {
+    const int i = base + lane;
+    const int st = i < n_lanes ? seg_ids[i] : INT_MIN;
+    const int en = i < n_lanes ? __ldcg(ends + i) : 0;
+    bool mine = false;
+#pragma unroll
+    for (int j = 0; j < kWalkThreads; ++j) {
+      const int sj = __shfl_sync(0xffffffffu, st, j);
+      const int ej = __shfl_sync(0xffffffffu, en, j);
+      const bool keep = sj > reach;
+      reach = keep ? ej : reach;
+      mine = j == lane ? keep : mine;
+    }
+    if (i < n_lanes) ends[i] = mine ? en : -1;
+  }
+  __syncwarp();
+  __threadfence_block();
+  const unsigned long long used = min((unsigned long long)cap,
+                                      (unsigned long long)__ldcg(&counters[0]));
+  for (unsigned long long p = lane; p < used; p += kWalkThreads) {
+    const long long pr = __ldcg(pairs + p);
+    if (__ldcg(ends + ((pr >> 8) & 0xffffff)) >= 0) claim[pr >> 32] = (int)(pr & 0xff);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -131,6 +250,32 @@ int thc_selfsync_decode(int device, const void* words, long long n_words,
       (const int*)l0, root_bits, (const int*)l1, l1_size, smem.l1_in_smem,
       thc::refill_group(max_len), (uint8_t*)syms, (int16_t*)starts, (int*)counts,
       (int*)exits, (int*)bad, (int*)blast);
+  return (int)cudaGetLastError();
+}
+
+// The walk: seg_ids (ascending, >= 0) hold n_lanes int32, entries and
+// exits0 n_segs int32; steps the 2^kWalkStepBits bytes of the walk table; ends n_lanes int32 (out: the last segment of each
+// kept walk, -1 for a dropped one); pairs holds cap int64 (the list; a walk
+// past it is not kept whole, which the stitch's proof catches); counters
+// two uint32 and claim n_segs int32, which the caller fills with 0 and -1.
+// n_lanes < 2^24: a thread's number takes 24 bits of a pair.
+int thc_selfsync_walk(int device, const void* words, long long n_words,
+                      const void* seg_ids, const void* entries, int n_lanes,
+                      const void* exits0, int n_segs, int seg_bits, const void* l0,
+                      int root_bits, const void* l1, long long l1_size, int max_len,
+                      const void* steps, void* ends, void* pairs, long long cap,
+                      void* counters, void* claim, void* stream) {
+  const cudaError_t set = cudaSetDevice(device);
+  if (set != cudaSuccess) return (int)set;
+  const thc::LutSmem smem = thc::lut_smem(root_bits, l1_size, 1 << kWalkStepBits);
+  const unsigned grid = (unsigned)((n_lanes + kWalkThreads - 1) / kWalkThreads);
+  auto kernel = thc::two_level(root_bits, max_len) ? selfsync_walk_kernel<true>
+                                                   : selfsync_walk_kernel<false>;
+  kernel<<<grid, kWalkThreads, smem.bytes + (1 << kWalkStepBits), (cudaStream_t)stream>>>(
+      (const unsigned*)words, n_words, (const int*)seg_ids, (const int*)entries, n_lanes,
+      (const int*)exits0, n_segs, seg_bits, (const int*)l0, root_bits, (const int*)l1,
+      l1_size, smem.l1_in_smem, (int)smem.bytes, (const int*)steps, (int*)ends,
+      (long long*)pairs, cap, (unsigned*)counters, (int*)claim);
   return (int)cudaGetLastError();
 }
 

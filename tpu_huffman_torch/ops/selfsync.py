@@ -25,25 +25,37 @@ Every drain tries the stitch first (:func:`stitch`):
    boundary: from there on the full pass's chain is the true one, if no
    invalid window of it lies past that point. A segment whose patch
    reaches its end and exits where the full pass does resolves too;
-5. up to max(``R_MAX``, S / 32) unresolved segments of S are re-decoded
-   whole from their true entries in one launch (``seg_ids``); a repair
-   stands when it meets no invalid window and its exit equals the full
-   pass's;
+5. the walk (:func:`walk_segments`, one launch, a thread an unresolved
+   segment): from its true entry, each follows the chain through its
+   segment and on through the next while the exit differs from the full
+   pass's, so it crosses the whole run of out-of-phase segments it starts,
+   stepping over the codes whole in a window's top ``WALK_STEP_BITS`` bits
+   in one lookup (:func:`walk_steps`). The earliest walk that reaches a
+   segment gives that segment's entry.
+   Every segment walked is re-decoded whole from that entry, over its
+   full-pass row (one launch, ``seg_ids``), and the chain is proved on the
+   device: no re-decoded segment meets an invalid window, and every segment
+   enters where its predecessor truly exits (so each run ends where the full
+   pass exits, or at the last segment);
 6. the body is each segment's patch head and full-pass tail (or its
-   repaired row), in one gather on the device, cut at ``capacity`` for the
-   capped drain.
+   re-decoded row), in one gather on the device, cut at ``capacity`` for
+   the capped drain.
 
-A clean stream costs two launches and one host read; a repair adds a
-launch and a read. Every segment resolved proves the whole chain: segment
-s's entry is true once segment s-1 is resolved. When a segment stays
-unresolved (an invalid window on a true chain, as in a corrupt stream;
-more failures than one repair takes; a repaired exit that differs), the drain
-falls back to the fixpoint (:func:`_fixpoint`): full passes, each feeding
-segment s's exit back as segment s+1's entry, until the entries stop
-changing; pass k makes segment k exact, and each pass costs a host sync.
-The fixpoint owns the error semantics: every UnknownSymbolError of this
-module is raised there. ``outcomes`` counts the drains that were stitched,
-repaired and fell back, and the segments the repairs re-decoded.
+A clean stream costs two launches and one host read; a walk adds two
+launches and a read. The proof covers the whole chain: segment s's entry is
+true once segment s-1's chain is. The earliest failure's entry is true by
+induction, and a failure inside an earlier walk started from the full
+pass's wrong chain, which is why the earliest walk wins. When the proof
+fails (an invalid window on a true chain, as in a corrupt stream; more
+failures than ``WALK_LANES``), the drain falls back to the fixpoint
+(:func:`_fixpoint`): full passes, each feeding segment s's exit back as
+segment s+1's entry, until the entries stop changing; pass k makes segment
+k exact, and each pass costs a host sync. The fixpoint owns the error
+semantics: every UnknownSymbolError of this module is raised there.
+``outcomes`` counts the drains that were stitched, repaired (every walk
+one segment), walked (some walk crossed more) and fell back, the
+unresolved segments (``segments_repaired``) and the segments re-decoded
+(``segments_walked``).
 
 The kernel segments leave out the stream's last partial segment and one
 guard segment, so every codeword they decode has more than 32 bits after it:
@@ -61,8 +73,9 @@ of symbol number ``capacity``, from the kernel's ``starts``.
 
 Those two read the device two to five times a call. The decoder calls
 :func:`fused_drain_words` instead, which does the same work as one
-sequence of launches with one download at its end: the repair launched
-every time (its lanes dead on a clean stream), the body assembled at a
+sequence of launches with one download at its end: a one-segment repair
+in place of the walk, launched every time at max(``R_MAX``, S / 32) lanes
+(dead on a clean stream), the body assembled at a
 size the host fixes (the capacity, or a rate hint from the last call),
 and the tail walked by ``stream_decode.decode_stream_dev`` from the start
 bit and budget that the stitch left in device memory. A segment still
@@ -80,13 +93,16 @@ device for every table).
 launches the kernel for tensors on a CUDA device; there is no fallback from
 one to the other. ``launches`` counts the kernel launches, and under keys
 of their own those that wrote ``starts``, those that wrote ``blast``, the
-patch launches (a code cap) and the repair launches (segment ids).
+patch launches (a code cap), the repair and re-decode launches (segment
+ids) and the walks (:func:`walk_segments`, which also count as
+``selfsync_decode``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from .. import _build, metrics
@@ -104,21 +120,28 @@ NO_START = MAX_STARTS_SEG_BITS  # a starts slot with no symbol: past any segment
 # Patch-pass codes per segment (the JAX package's PATCH_SYMS): the merge
 # must fall within them, or the segment goes to the repair.
 PATCH_SYMS = 32
-# Unresolved segments one repair launch takes: R_MAX, or S / 32 of S
-# segments where that is more. The JAX package repairs up to R_MAX = 256 in
-# its device stitch and, past that, up to max(64, S >> 5) in its host one
-# (``_stitch_fast``); the port has one stitch, with the larger of the two.
-# More failures fall back to the fixpoint.
+# Unresolved segments the walk takes, more fall back to the fixpoint: every
+# one, as far as the kernel's 24-bit walk numbers go
+WALK_LANES = (1 << 24) - 1
+# The fused drain's in-graph repair (one segment a lane, no host read):
+# R_MAX lanes, or S / 32 of S segments where that is more, as the JAX
+# package's device stitch (R_MAX = 256) and host one (max(64, S >> 5)).
 R_MAX = 256
+# The walk kernel's list of the segments its walks cross: WALK_PAIRS
+# entries a segment (a walk past it is not kept whole, and the proof fails)
+WALK_PAIRS = 2
+# The walk steps over every code that lies whole in a window's top
+# WALK_STEP_BITS bits in one lookup (csrc/selfsync_decode.cu kWalkStepBits)
+WALK_STEP_BITS = 12
 launches = metrics.register("ops.selfsync.launches", {
     "selfsync_decode": 0, "selfsync_decode_starts": 0, "selfsync_decode_blast": 0,
-    "selfsync_decode_patch": 0, "selfsync_decode_repair": 0})
-# drains of kernel segments by how they ended, and the segments repaired;
-# the fused drains that fell back to the classic ones, and the fused drains
-# whose body outgrew the first download
+    "selfsync_decode_patch": 0, "selfsync_decode_repair": 0, "selfsync_decode_walk": 0})
+# drains of kernel segments by how they ended, the unresolved segments and
+# the segments the walk re-decoded; the fused drains that fell back to the
+# classic ones, and the fused drains whose body outgrew the first download
 outcomes = metrics.register("ops.selfsync.outcomes", {
-    "stitched": 0, "repaired": 0, "fixpoint": 0, "segments_repaired": 0, "fallback": 0,
-    "second_downloads": 0})
+    "stitched": 0, "repaired": 0, "walked": 0, "fixpoint": 0, "segments_repaired": 0,
+    "segments_walked": 0, "fallback": 0, "second_downloads": 0})
 
 
 def supports(table: HuffmanTable) -> bool:
@@ -177,7 +200,7 @@ def _check_lanes(name: str, t: torch.Tensor, n: int, dev) -> None:
 def decode_segments(words: torch.Tensor, entries: torch.Tensor, seg_bits: int,
                     max_syms: int, dt, starts: torch.Tensor | None = None,
                     blast: torch.Tensor | None = None, max_codes: int = 0,
-                    seg_ids: torch.Tensor | None = None):
+                    seg_ids: torch.Tensor | None = None, syms_out: torch.Tensor | None = None):
     """One pass: lane t decodes segment s = t (or ``seg_ids[t]``) from bit
     ``s * seg_bits + entries[t]`` (``entries`` >= 0) until the first
     codeword start at or past the segment's end, or, with ``max_codes`` >
@@ -202,7 +225,9 @@ def decode_segments(words: torch.Tensor, entries: torch.Tensor, seg_bits: int,
     ``torch.empty``). A negative ``seg_ids`` entry is a dead lane: it writes
     nothing, so its syms row is undefined (zeros from the plain version),
     its counts, exits and bad are 0, and its starts and blast are left as
-    they were.
+    they were. ``syms_out``, when given, is the uint8 [T, max_syms] tensor
+    the rows go to (and the one returned), so that the rows of a launch with
+    dead lanes land over another pass's.
     """
     with metrics.span("tt.selfsync.pass"):
         _check(words, entries, dt)
@@ -212,16 +237,22 @@ def decode_segments(words: torch.Tensor, entries: torch.Tensor, seg_bits: int,
             _check_starts(starts, (t, max_syms), seg_bits, dev)
         if blast is not None:
             _check_lanes("blast", blast, t, dev)
+        if syms_out is not None and (
+                syms_out.dtype != torch.uint8 or tuple(syms_out.shape) != (t, max_syms)
+                or not syms_out.is_contiguous() or syms_out.device != dev):
+            raise ValueError(f"syms_out must be a contiguous uint8 tensor of shape "
+                             f"{(t, max_syms)} on {dev}")
         if seg_ids is not None:
             _check_lanes("seg_ids", seg_ids, t, dev)
         if not 0 <= max_codes <= max_syms:
             raise ValueError(f"max_codes must be in [0, max_syms={max_syms}], got {max_codes}")
         if dev.type == "cpu":
             return decode_segments_plain(words, entries, seg_bits, max_syms, dt, starts, blast,
-                                         max_codes, seg_ids)
+                                         max_codes, seg_ids, syms_out)
         if dev.type != "cuda":
             raise ValueError(f"unsupported device {dev}")
-        syms = torch.empty((t, max_syms), dtype=torch.uint8, device=dev)
+        syms = syms_out if syms_out is not None else torch.empty(
+            (t, max_syms), dtype=torch.uint8, device=dev)
         new = torch.empty if seg_ids is None else torch.zeros  # dead lanes write nothing
         counts, exits, bad = (new(t, dtype=torch.int32, device=dev) for _ in range(3))
         words, entries = words.contiguous(), entries.contiguous()
@@ -249,7 +280,8 @@ def decode_segments_plain(words: torch.Tensor, entries: torch.Tensor,
                           seg_bits: int, max_syms: int, dt,
                           starts: torch.Tensor | None = None,
                           blast: torch.Tensor | None = None, max_codes: int = 0,
-                          seg_ids: torch.Tensor | None = None):
+                          seg_ids: torch.Tensor | None = None,
+                          syms_out: torch.Tensor | None = None):
     """Plain version of :func:`decode_segments`, with the same row contract:
     every lane steps at once, in int64, until all have stopped."""
     dev = words.device
@@ -286,7 +318,118 @@ def decode_segments_plain(words: torch.Tensor, entries: torch.Tensor,
     if blast is not None:
         blast.copy_(torch.where(live, last_bad, blast.to(torch.int64)))
     exits = torch.where(live, rel, 0)
+    if syms_out is not None:
+        syms_out[live] = syms[live]
+        syms = syms_out
     return syms, counts.to(torch.int32), exits.to(torch.int32), bad.to(torch.int32)
+
+
+def walk_steps(dt) -> torch.Tensor:
+    """The walk kernel's second table, uint8 [2^WALK_STEP_BITS] on ``dt``'s
+    device, built once a DeviceTable: for each value of a window's top
+    WALK_STEP_BITS bits, the bits of the codes that lie whole in them, taken
+    from the first while each is whole; 0 where the first is longer or no
+    code matches."""
+    got = getattr(dt, "walk_steps", None)
+    if got is None:
+        k, t = WALK_STEP_BITS, dt.table
+        head = np.zeros(1 << k, np.int64)  # the length of the code each k-bit value starts with
+        for sym in np.flatnonzero((t.lengths > 0) & (t.lengths <= k)):
+            n, code = int(t.lengths[sym]), int(t.patterns[sym])
+            head[code << (k - n):(code + 1) << (k - n)] = n
+        window = np.arange(1 << k)
+        pos = np.zeros_like(window)
+        whole = np.ones(window.size, bool)
+        for _ in range(k):
+            n = head[(window << pos) & ((1 << k) - 1)]
+            whole &= (n > 0) & (pos + n <= k)
+            pos = np.where(whole, pos + n, pos)
+        got = dt.walk_steps = torch.as_tensor(pos.astype(np.uint8)).to(dt.l0.device)
+    return got
+
+
+def walk_segments(words: torch.Tensor, seg_ids: torch.Tensor, entries: torch.Tensor,
+                  exits0: torch.Tensor, seg_bits: int, dt):
+    """The stitch's walk (step 5). Lane t follows the chain from segment
+    f = ``seg_ids[t]``'s entry bit ``entries[f]`` to the end of that
+    segment, and on through the next while its exit differs from
+    ``exits0[k]``; it stops at an invalid window and at the last segment.
+    ``entries`` and ``exits0`` are int32 [S], the true entries and the full
+    pass's exits; ``seg_ids`` ascend, >= 0. The walks are kept in order, each
+    that starts past the last kept one's end: a later one started from the
+    full pass's wrong chain.
+
+    Returns (claim int32 [S], ends int32 [T]): each segment's entry bit on
+    the kept walk that crossed it, -1 where none did; each kept walk's last
+    segment, -1 for a dropped walk. No rows are written: a walk keeps only
+    its chain's state, and the stitch re-decodes the segments claimed.
+    """
+    with metrics.span("tt.selfsync.walk"):
+        _check(words, entries, dt)
+        dev = words.device
+        n = seg_ids.numel()
+        n_segs = exits0.numel()
+        _check_lanes("seg_ids", seg_ids, n, dev)
+        _check_lanes("entries", entries, n_segs, dev)
+        _check_lanes("exits0", exits0, n_segs, dev)
+        if not 0 < n < 1 << 24:
+            raise ValueError(f"{n} walks: 1 to 2^24 - 1")
+        if dev.type == "cpu":
+            return walk_segments_plain(words, seg_ids, entries, exits0, seg_bits, dt)
+        if dev.type != "cuda":
+            raise ValueError(f"unsupported device {dev}")
+        steps = walk_steps(dt)
+        claim = torch.full((n_segs,), -1, dtype=torch.int32, device=dev)
+        ends = torch.empty(n, dtype=torch.int32, device=dev)
+        cap = WALK_PAIRS * n_segs
+        pairs = torch.empty(cap, dtype=torch.int64, device=dev)
+        counters = torch.zeros(2, dtype=torch.int32, device=dev)
+        words, entries = words.contiguous(), entries.contiguous()
+        err = _build.load().thc_selfsync_walk(
+            dev.index, words.data_ptr(), words.numel(), seg_ids.data_ptr(), entries.data_ptr(),
+            n, exits0.data_ptr(), n_segs, seg_bits, dt.l0.data_ptr(), dt.root_bits,
+            dt.l1.data_ptr(), dt.l1.numel(), dt.table.max_len, steps.data_ptr(),
+            ends.data_ptr(), pairs.data_ptr(), cap, counters.data_ptr(), claim.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _build.check("thc_selfsync_walk", err)
+        launches["selfsync_decode"] += 1
+        launches["selfsync_decode_walk"] += 1
+        return claim, ends
+
+
+def walk_segments_plain(words: torch.Tensor, seg_ids: torch.Tensor, entries: torch.Tensor,
+                        exits0: torch.Tensor, seg_bits: int, dt):
+    """Plain version of :func:`walk_segments`: the walks step a segment at
+    a time together, each segment through :func:`decode_segments_plain`
+    with no rows; then the walks are kept in order on the host. The kernel
+    steps over runs of whole codes in one lookup (:func:`walk_steps`), which
+    leaves every chain as it is; it lists (segment, walk, entry) with an
+    atomic counter and keeps the walks in its last block. Its list holds
+    ``WALK_PAIRS`` entries a segment; the walks of a stream that fill it are
+    not kept whole there, and the stitch falls back."""
+    n_segs = exits0.numel()
+    lane = torch.arange(seg_ids.numel(), device=words.device)
+    seg = seg_ids.to(torch.int64)
+    rel = entries[seg].to(torch.int64)
+    ends = seg.clone()
+    crossed = []  # (walk, segment, entry) a step
+    while lane.numel():
+        crossed.append((lane, seg, rel))
+        ends[lane] = seg
+        _syms, _counts, exits, bad = decode_segments_plain(
+            words, rel.to(torch.int32), seg_bits, 0, dt, seg_ids=seg.to(torch.int32))
+        on = (bad == 0) & (exits != exits0[seg]) & (seg + 1 < n_segs)
+        lane, seg, rel = lane[on], seg[on] + 1, exits[on].to(torch.int64) - seg_bits
+    reach, kept = -1, []
+    for first, end in zip(seg_ids.tolist(), ends.tolist()):
+        kept.append(first > reach)
+        reach = end if kept[-1] else reach
+    kept = torch.tensor(kept, dtype=torch.bool, device=words.device)
+    claim = torch.full((n_segs,), -1, dtype=torch.int32, device=words.device)
+    for lane, seg, rel in crossed:
+        claim[seg[kept[lane]]] = rel[kept[lane]].to(torch.int32)
+    return claim, torch.where(kept, ends, -1).to(torch.int32)
 
 
 def _fixpoint(words: torch.Tensor, n_segs: int, seg_bits: int, start_bit: int,
@@ -413,8 +556,8 @@ def _repair_lanes(fail: torch.Tensor, lanes: int):
 
 def stitch(words: torch.Tensor, start_bit: int, plan: tuple, dt,
            capacity: int | None = None):
-    """The one-pass + patch stitch over the plan's segments, on the words'
-    device (see the module's docstring).
+    """The one-pass + patch stitch and the walk over the plan's segments,
+    on the words' device (see the module's docstring).
 
     Returns None when a segment stays unresolved, else (body, tail_start,
     total, cut): the first min(total, capacity) symbols of the segments'
@@ -434,41 +577,52 @@ def stitch(words: torch.Tensor, start_bit: int, plan: tuple, dt,
         syms_a, starts_a, i_eff, j_s, counts, fail = (m.syms_a, m.starts_a, m.i_eff, m.j_s,
                                                       m.counts, m.fail)
 
-        def read(flag):
-            """One host read: (total, last exit, the cut's bit or 0, flag)."""
+        def read(counts, last_exit, *flags):
+            """One host read: (total, last exit, the cut's bit or 0, *flags)."""
             cum = torch.cumsum(counts, 0)
             cut_bit = torch.zeros((), dtype=torch.int64, device=dev)
             if capacity is not None:
                 cut_bit = _cut_bit(cum, capacity, seg_bits, i_eff, j_s, starts_a, starts0)
-            with metrics.d2h(32):
-                return torch.stack([cum[-1], exits0[-1].long(), cut_bit, flag.long()]).tolist()
+            with metrics.d2h(8 * (3 + len(flags))):
+                return torch.stack([cum[-1], last_exit.long(), cut_bit,
+                                    *(f.long() for f in flags)]).tolist()
 
-        total, last_exit, cut_bit, n_fail = read(fail.sum())
-        lanes = max(R_MAX, n_segs >> 5)
-        if n_fail > lanes:
-            return None
+        total, last_exit, cut_bit, n_fail = read(counts, exits0[-1], fail.sum())
+        n_walked = crossed = 0
         if n_fail:
-            # 5. repair: the failed segments' ids in lanes 0..n_fail-1, the rest dead
-            seg_ids = _repair_lanes(fail, lanes)[0]
-            ent_r = torch.where(seg_ids >= 0, m.entries1[seg_ids.clamp(min=0).long()], 0)
-            starts_r = torch.empty((lanes, max_syms), dtype=torch.int16, device=dev)
-            syms_r, count_r, exits_r, bad_r = decode_segments(
-                words, ent_r, seg_bits, max_syms, dt, starts=starts_r, seg_ids=seg_ids)
-            ids = seg_ids[:n_fail].long()
-            ok = ((bad_r[:n_fail] == 0) & (exits_r[:n_fail] == exits0[ids])).all()
-            # a repaired segment is its repaired row whole: no head, all tail
-            syms0[ids], starts0[ids] = syms_r[:n_fail], starts_r[:n_fail]
-            i_eff.index_fill_(0, ids, 0)
-            j_s.index_fill_(0, ids, 0)
-            counts[ids] = count_r[:n_fail].long()
-            total, last_exit, cut_bit, repair_ok = read(ok)
-            if not repair_ok:
+            if n_fail > WALK_LANES:
                 return None
+            # 5. the walk from each failed segment's true entry, then every
+            # segment it crossed re-decoded over its full-pass row (lane s
+            # is segment s, dead where no walk crossed), then the proof
+            seg_ids = torch.nonzero_static(fail, size=n_fail)[:, 0].to(torch.int32)
+            claim, ends = walk_segments(words, seg_ids, m.entries1, exits0, seg_bits, dt)
+            seg = torch.arange(n_segs, device=dev)
+            walked = claim >= 0
+            _syms, count_w, exits_w, bad_w = decode_segments(
+                words, claim, seg_bits, max_syms, dt, starts=starts0,
+                seg_ids=torch.where(walked, seg, -1).to(torch.int32), syms_out=syms0)
+            # the chain: each segment enters (at its claim where walked, else
+            # where the full pass's exit put it) at its predecessor's true exit
+            exit_t = torch.where(walked, exits_w, exits0)
+            enter_t = torch.cat([m.entries1[:1], exit_t[:-1] - seg_bits])
+            ok = ((torch.where(walked, claim, m.entries1) == enter_t) & (bad_w == 0)
+                  & (walked | ~fail)).all()
+            # a walked segment is its re-decoded row whole: no head, all tail
+            i_eff.masked_fill_(walked, 0)
+            j_s.masked_fill_(walked, 0)
+            counts = torch.where(walked, count_w.long(), counts)
+            total, last_exit, cut_bit, ok, n_walked, n_runs = read(
+                counts, exit_t[-1], ok, walked.sum(), (ends >= 0).sum())
+            if not ok:
+                return None
+            crossed = n_walked > n_runs
         # 6. the body, cut at `capacity`
         n_out = total if capacity is None else min(total, capacity)
         body = _assemble(syms_a, syms0, i_eff, j_s, counts, n_out)
-        outcomes["repaired" if n_fail else "stitched"] += 1
+        outcomes["walked" if crossed else "repaired" if n_fail else "stitched"] += 1
         outcomes["segments_repaired"] += n_fail
+        outcomes["segments_walked"] += n_walked
         cut = cut_bit if capacity is not None and total > capacity else None
         return body, n_segs * seg_bits + last_exit - seg_bits, total, cut
 

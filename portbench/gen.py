@@ -1,8 +1,22 @@
 """The benchmark's input generators, vectorised with NumPy.
 
 Every input is a function of ``(kind, seed, index)`` alone, through
-``numpy.random.default_rng([seed, index, part])``, so the same seed gives
-the same bytes on any machine.
+``numpy.random.default_rng([seed, index, part])`` (:func:`rng`), so the
+same seed gives the same bytes on any machine.
+
+A configuration's ``data`` names its generator (:func:`inputs`): an entry
+of ``DATA`` (with its strings in ``FIELDS``), or a file
+``portbench/inputs/<data>.py`` of its own that defines
+
+- ``make(n: int, seed: int, index: int, cfg: dict) -> np.ndarray``: ``n``
+  bytes, uint8, the bulk patterns' object ``index``;
+- for the ``strings`` pattern, ``fields(count: int, seed: int, index: int,
+  cfg: dict) -> list[bytes]``: ``count`` strings.
+
+``cfg`` is the configuration as ``harness.resolve`` returns it, its
+``table_path`` included, so that a generator can read the table
+(``reference.huffman_np.parse_tsv``), as a corpus matched to it must. A
+file generator draws its randomness only through :func:`rng`.
 
 ``canterbury_like`` copies the construction of the port's
 ``tpu_huffman_torch/corpora.py`` (itself a copy of the JAX package's
@@ -21,7 +35,14 @@ a string of its own, as HPACK codes them.
 
 from __future__ import annotations
 
+import os
+from typing import Callable, NamedTuple
+
 import numpy as np
+
+from . import named
+
+INPUTS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "inputs")
 
 _WORDS = (
     "the of and a to in is was he for it with as his on be at by i this had "
@@ -253,3 +274,31 @@ def header_fields(count: int, seed: int, index: int = 0) -> list[bytes]:
 DATA = {"canterbury_like": canterbury_like, "hpack_stream": hpack_stream}
 FIELDS = {"hpack_stream": header_fields}
 
+
+class Inputs(NamedTuple):
+    """A configuration's generators: ``make(n, seed, index)`` and, where it
+    has strings, ``fields(count, seed, index=0)``."""
+
+    make: Callable
+    fields: Callable | None
+
+
+def inputs(cfg: dict) -> Inputs:
+    """The generators that ``cfg["data"]`` names: ``DATA``'s and
+    ``FIELDS``'s own functions, or the file's with ``cfg`` bound."""
+    name = cfg["data"]
+    found = named.find("data", name, DATA, "gen.DATA", INPUTS)
+    if name in DATA:
+        return Inputs(found, FIELDS.get(name))
+    if not callable(getattr(found, "make", None)):
+        raise ValueError(f"{found.__file__} defines no make(n, seed, index, cfg)")
+
+    def make(n: int, seed: int, index: int) -> np.ndarray:
+        return found.make(n, seed, index, cfg)
+
+    fields = None
+    if callable(getattr(found, "fields", None)):
+        def fields(count: int, seed: int, index: int = 0) -> list[bytes]:
+            return found.fields(count, seed, index, cfg)
+
+    return Inputs(make, fields)

@@ -2,10 +2,17 @@
 
 The cell's entry in ``BENCHMARK.json`` names its configuration
 (``portbench/configs/<config>.json``, with its table file beside it) and
-its traffic mix (``portbench/traffic/<traffic>.json``, whose ``pattern``
-names one of ``patterns.PATTERNS``); each metric is read by
-``portbench/metrics/<name>.py`` (:func:`reader_path`). A cell, mix,
-configuration or metric is added by adding those files and entries.
+its traffic mix (``portbench/traffic/<traffic>.json``); each metric is
+read by ``portbench/metrics/<name>.py`` (:func:`reader_path`). The
+configuration's ``data`` names its inputs: an entry of ``gen.DATA``, or a
+file ``portbench/inputs/<data>.py`` with ``make(n, seed, index, cfg)`` and,
+for strings, ``fields(count, seed, index, cfg)`` (``gen.inputs``). The
+mix's ``pattern`` names its calls: an entry of ``patterns.PATTERNS``, or a
+file ``portbench/calls/<pattern>.py`` with a class ``Pattern(ctx)``
+(``patterns.pattern``); its ``control`` names one of ``codecs.CONTROLS``.
+:func:`resolve` finds every name before set-up, and refuses one that is
+not ``[A-Za-z0-9_]+`` or is found in both places or in neither. A cell,
+mix, configuration or metric is added by adding those files and entries.
 
 Set-up is everything from the process's start to the window's first
 call: imports, the kernels' build or load, the inputs from the seed, a
@@ -21,7 +28,6 @@ from __future__ import annotations
 
 import contextlib
 import gc
-import importlib.util
 import json
 import os
 import resource
@@ -33,7 +39,7 @@ from collections import Counter
 
 import numpy as np
 
-from . import patterns, trace
+from . import codecs, gen, named, patterns, trace
 from .reference import huffman_np as R
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -49,7 +55,8 @@ def load_spec(root: str = ROOT) -> dict:
 
 
 def resolve(spec: dict, workload: str, root: str = ROOT) -> dict:
-    """The cell, its configuration and mix, and the metrics it reports."""
+    """The cell, its configuration and mix, its inputs and pattern, and
+    the metrics it reports."""
     cells = {c["name"]: c for c in spec["workloads"]}
     if workload not in cells:
         raise SystemExit(f"unknown workload {workload!r}: one of {sorted(cells)}")
@@ -61,11 +68,15 @@ def resolve(spec: dict, workload: str, root: str = ROOT) -> dict:
                                      cfg["table"])
     with open(os.path.join(HERE, "traffic", cell["traffic"] + ".json")) as f:
         mix = json.load(f)
+    if mix.get("control") not in codecs.CONTROLS:
+        raise ValueError(f"mix {cell['traffic']!r}: control {mix.get('control')!r} is not one "
+                         f"of codecs.CONTROLS {codecs.CONTROLS}")
 
     def mine(m):
         return "workloads" not in m or workload in m["workloads"]
 
-    return {"cell": cell, "cfg": cfg, "mix": mix,
+    return {"cell": cell, "cfg": cfg, "mix": mix, "inputs": gen.inputs(cfg),
+            "pattern": patterns.pattern(mix["pattern"]),
             "end_to_end": [m for m in spec["end_to_end"] if mine(m)],
             "per_layer": [m for m in spec["per_layer"] if mine(m)]}
 
@@ -82,12 +93,7 @@ def reader_path(name: str) -> str:
 
 def reader(name: str):
     """The ``read(obs)`` of the metric's file (:func:`reader_path`)."""
-    path = reader_path(name)
-    spec = importlib.util.spec_from_file_location("portbench_metric_" + name.replace(".", "_"),
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return named.load(reader_path(name), "portbench_metric_" + name.replace(".", "_")).read
 
 
 def forbidden_modules() -> list[str]:
@@ -195,7 +201,7 @@ def run(workload: str, seed: int, seconds: float, trace_on: bool, t_start: float
     rec = Recorder(torch, trace_on)
     ctx = patterns.Context(codec, codec.load_table(cfg["table_path"]),
                            R.parse_tsv(cfg["table_path"]), cfg, mix, seed, rec)
-    pattern = patterns.PATTERNS[mix["pattern"]](ctx)
+    pattern = r["pattern"](ctx)
     if warm:
         pattern.warm(rec)
     prof = trace.Profile(torch) if trace_on else None

@@ -23,16 +23,28 @@ which times each, names its span, and counts its host syncs.
 Every answer's sizes are checked; an answer's bytes are kept and compared
 for the first request of each input and for requests drawn from the seed
 at ``sample_share`` (all of them for ``strings``).
+
+A mix's ``pattern`` names one of ``PATTERNS`` or a file
+``portbench/calls/<pattern>.py`` of its own (:func:`pattern`), which
+defines a class ``Pattern(ctx: Context)`` with the four methods above:
+``warm(rec)``, ``request(i) -> int`` (the request's plaintext bytes),
+``release()`` and ``check() -> (checks, counts)``. It reaches the program
+only through ``ctx.codec``'s entries, so that the control can stand in
+its place, and its inputs through ``ctx.objects()`` or
+``ctx.inputs.fields``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import numpy as np
 
-from . import gen, roofline
+from . import gen, named, roofline
 from .reference import huffman_np as R
+
+CALLS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "calls")
 
 
 class Context:
@@ -40,6 +52,7 @@ class Context:
         self.codec, self.table, self.ref = codec, table, ref
         self.cfg, self.mix, self.seed, self.rec = cfg, mix, seed, rec
         self.eos = int(cfg["eos_padding"])
+        self.inputs = gen.inputs(cfg)
         self.ref_s = 0.0  # set-up seconds spent in the reference, kept out of setup_s
         self._keep = gen.rng(seed, 1 << 30, 0).random(1 << 16)
 
@@ -49,8 +62,8 @@ class Context:
             self.mix.get("sample_share", 1.0))
 
     def objects(self) -> list[bytes]:
-        n, data = int(self.mix["object_bytes"]), gen.DATA[self.cfg["data"]]
-        return [data(n, self.seed, i).tobytes() for i in range(int(self.mix["pool"]))]
+        n, make = int(self.mix["object_bytes"]), self.inputs.make
+        return [make(n, self.seed, i).tobytes() for i in range(int(self.mix["pool"]))]
 
 
 def _check(name: str, value: int, limit: int = 0) -> tuple:
@@ -262,7 +275,9 @@ class StreamPipe:
 class Strings:
     def __init__(self, ctx: Context):
         self.ctx = ctx
-        self.fields = gen.FIELDS[ctx.cfg["data"]](int(ctx.mix["pool"]), ctx.seed)
+        if ctx.inputs.fields is None:
+            raise ValueError(f"data {ctx.cfg['data']!r} makes no strings for the strings pattern")
+        self.fields = ctx.inputs.fields(int(ctx.mix["pool"]), ctx.seed)
         c = ctx.codec
         self.enc = c.HuffmanEncoder(ctx.table, eos_padding=ctx.eos)
         self.dec = c.HuffmanDecoder(ctx.table)
@@ -310,3 +325,14 @@ class Strings:
 
 PATTERNS = {"oneshot_index": OneshotIndex, "oneshot_foreign": OneshotForeign,
             "stream_pipe": StreamPipe, "strings": Strings}
+
+
+def pattern(name: str) -> type:
+    """The class that a mix's ``pattern`` names: one of ``PATTERNS``, or
+    the ``Pattern`` of ``portbench/calls/<name>.py``."""
+    found = named.find("pattern", name, PATTERNS, "patterns.PATTERNS", CALLS)
+    if name in PATTERNS:
+        return found
+    if not isinstance(getattr(found, "Pattern", None), type):
+        raise ValueError(f"{found.__file__} defines no class Pattern(ctx)")
+    return found.Pattern

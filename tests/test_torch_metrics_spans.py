@@ -245,9 +245,12 @@ def test_a_round_trip_counts_its_uploads_and_downloads():
     assert tt.decode_indexed(enc, idx, t, **CPU) == data
     grew = _grew(before)
     n_blocks = len(idx.bit_offsets)
-    # the plaintext and the stream up; the index's three arrays up with the stream
-    assert grew["copies.h2d"] == 5
-    assert grew["copies.h2d_bytes"] == len(data) + len(enc) + n_blocks * (8 + 4 + 8)
+    # the table's arrays up in one copy at its first use; the plaintext and the
+    # stream up; the index's three arrays up with the stream
+    assert grew["ops.encode.outcomes.device_tables"] == 1
+    assert grew["copies.h2d"] == 6
+    assert grew["copies.h2d_bytes"] == (grew["ops.encode.outcomes.device_table_h2d_bytes"]
+                                        + len(data) + len(enc) + n_blocks * (8 + 4 + 8))
     # scalars, block offsets and stream down; the plaintext and its error flag down
     assert grew["copies.d2h"] == 5
     assert grew["copies.d2h_bytes"] >= len(enc) + len(data) + 8 * n_blocks
@@ -260,7 +263,7 @@ def test_a_table_is_staged_once_per_device(tmp_path):
     tt.encode(b"first call", t, **CPU)
     tt.encode(b"second call", t, **CPU)
     tt.decode(tt.encode(b"third", t, **CPU), t, **CPU)
-    assert _grew(before)["setup.device_tables"] == 1
+    assert _grew(before)["ops.encode.outcomes.device_tables"] == 1
 
 
 def test_the_registry_holds_the_kernel_modules_counters_by_reference():

@@ -19,9 +19,9 @@ ints, registered here by reference under a dotted group name
 (:func:`register`), and :func:`counters_snapshot` reads them all at once.
 This module holds ``copies`` (host-to-device and device-to-host copies
 and their bytes, counted at the staging sites), ``setup`` (kernel-library
-builds and loads, ``DeviceTable`` builds) and ``calls`` (one key a public
-entry); the kernels' modules register their ``launches`` and
-``outcomes``.
+builds and loads) and ``calls`` (one key a public entry); the kernels'
+modules register their ``launches`` and ``outcomes`` (``ops.encode``'s
+count the ``DeviceTable`` set-ups).
 
 ``Counters`` is the JAX package's call counter set, kept with its fields:
 ``encode`` and ``decode`` update it through :func:`record` when counting
@@ -72,7 +72,7 @@ def register(group: str, counts: dict) -> dict:
 
 
 copies = register("copies", {"h2d": 0, "h2d_bytes": 0, "d2h": 0, "d2h_bytes": 0})
-setup = register("setup", {"kernel_builds": 0, "kernel_loads": 0, "device_tables": 0})
+setup = register("setup", {"kernel_builds": 0, "kernel_loads": 0})
 calls = register("calls", {"encode": 0, "encode_with_index": 0, "decode": 0,
                            "decode_indexed": 0, "stream.encode_chunk": 0,
                            "stream.decode_chunk": 0})

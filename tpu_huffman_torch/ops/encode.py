@@ -16,12 +16,16 @@ so that nothing waits for the host.
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+import time
+
 import numpy as np
 import torch
 
 from .. import metrics
 from ..errors import UnknownSymbolError
-from ..tables import HuffmanTable, _build_decode_lut
+from ..tables import NUM_SYMBOLS, HuffmanTable, _build_decode_lut
 from . import pack_encode
 from .bitpack import words_to_bytes
 from .chain_decode import MAX_ROOT_BITS
@@ -72,53 +76,103 @@ def stage_bytes(data, dev: torch.device) -> torch.Tensor:
         return staged.to(dev, non_blocking=True)
 
 
+# Each table set-up (``DeviceTable``): the count, its host ns from the read
+# of the table's file to the staged upload (``HuffmanTable.build_ns`` and
+# the staging), and the bytes uploaded.
+outcomes = metrics.register(
+    "ops.encode.outcomes", {"device_tables": 0, "device_table_ns": 0, "device_table_h2d_bytes": 0}
+)
+_ALIGN = 64  # int32s: each array of the upload starts on 256 bytes, as an allocation would
+
+
 class DeviceTable:
-    """A table's arrays staged on one device, cached per (table, device).
+    """A table's arrays staged on one device, kept in the table's ``staged``
+    and freed with it: the device holds the set-ups of the tables the
+    caller holds.
 
     Encode: ``patterns`` (uint32 bits in int32) and ``lengths`` (int32).
-    Decode: a LUT of its own, built at ``root_bits`` = min(the table's,
-    ``MAX_ROOT_BITS``) so that level 0 fits the kernels' shared memory.
-    ``root_bits`` is a layout: the decoded symbols are the same at any
-    width. For the kernel: ``l0``/``l1``, each entry packed into one int32
-    (see csrc/lut.cuh); for the plain version: ``l0_bits``, ``l0_val``,
-    ``l1_bits``, ``l1_val`` in int64.
+    Decode: the LUT at ``root_bits`` = min(the table's, ``MAX_ROOT_BITS``)
+    so that level 0 fits the kernels' shared memory: the table's own LUT,
+    rebuilt only for a table built wider. ``root_bits`` is a layout: the
+    decoded symbols are the same at any width. For the kernels: ``l0``/``l1``,
+    each entry packed into one int32 (see csrc/lut.cuh). The four arrays go
+    up in one upload (pinned and non-blocking to a card). The plain
+    versions' ``l0_bits``, ``l0_val``, ``l1_bits``, ``l1_val`` (int64) are
+    the host LUT's, independent of the packing, put on the device when one
+    first reads them. ``table`` is a copy of the table that shares its
+    arrays, so that the table's ``staged`` makes no cycle.
     """
 
-    _cache: dict = {}
-
     def __init__(self, table: HuffmanTable, dev: torch.device):
-        metrics.setup["device_tables"] += 1
+        t0 = time.perf_counter_ns()
         with metrics.span("tt.setup.table"):
-            self.table = table
+            self.table = dataclasses.replace(table)
             # bits a symbol of the last uncapped streaming encode, with a margin:
             # sizes the next one's download (stream.HuffmanEncoder)
             self.encode_rate = None
+            with metrics.span("tt.setup.table.lut"):
+                self.root_bits = min(int(table.root_bits), MAX_ROOT_BITS)
+                if self.root_bits == table.root_bits:
+                    lut = (table.l0_bits, table.l0_val, table.l1_bits, table.l1_val)
+                else:
+                    lut = _build_decode_lut(table.lengths, table.patterns, self.root_bits)[:4]
+                self._host_lut = l0_bits, l0_val, l1_bits, l1_val = lut
+                if l1_bits.size >= 1 << 23:
+                    raise ValueError("level-1 LUT too large for the packed entry form")
+            with metrics.span("tt.setup.table.upload"):
+                sizes = (NUM_SYMBOLS, NUM_SYMBOLS, l0_bits.size, l1_bits.size)
+                starts = np.cumsum((0,) + tuple(-(-n // _ALIGN) * _ALIGN for n in sizes))
+                nbytes = 4 * int(starts[-1])
+                with metrics.h2d(nbytes):
+                    if dev.type == "cuda":  # pinned, so that the upload does not block the host
+                        host = torch.empty(int(starts[-1]), dtype=torch.int32, pin_memory=True)
+                    else:
+                        host = torch.zeros(int(starts[-1]), dtype=torch.int32)
+                    pat, lens, l0, l1 = (host.numpy()[a:a + n] for a, n in zip(starts, sizes))
+                    pat[:] = table.patterns.astype(np.uint32, copy=False).view(np.int32)
+                    lens[:] = table.lengths
+                    np.left_shift(l0_val, 8, out=l0)  # packed in place: see csrc/lut.cuh
+                    l0 |= l0_bits & 0xFF
+                    np.left_shift(l1_val, 8, out=l1)
+                    l1 |= l1_bits
+                    buf = host.to(dev, non_blocking=True)
+                self.patterns, self.lengths, self.l0, self.l1 = (
+                    buf[a:a + n] for a, n in zip(starts, sizes))
+        outcomes["device_tables"] += 1
+        outcomes["device_table_ns"] += table.build_ns + time.perf_counter_ns() - t0
+        outcomes["device_table_h2d_bytes"] += nbytes
 
-            def put(a, dtype):
-                return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
+    def _plain(self, k: int) -> torch.Tensor:
+        """The host LUT's array ``k`` (l0_bits, l0_val, l1_bits, l1_val) as
+        int64 on the device."""
+        a = torch.as_tensor(self._host_lut[k], dtype=torch.int64)
+        dev = self.l0.device
+        if dev.type == "cpu":
+            return a
+        with metrics.h2d(8 * a.numel()):
+            return a.to(dev)
 
-            self.patterns = put(table.patterns.astype(np.uint32).view(np.int32), torch.int32)
-            self.lengths = put(table.lengths, torch.int32)
-            *lut, self.root_bits = _build_decode_lut(
-                table.lengths, table.patterns, min(int(table.root_bits), MAX_ROOT_BITS)
-            )
-            l0_bits, l0_val, l1_bits, l1_val = (a.astype(np.int64) for a in lut)
-            if l1_bits.size >= 1 << 23:
-                raise ValueError("level-1 LUT too large for the packed entry form")
-            self.l0 = put((l0_val << 8) | (l0_bits & 0xFF), torch.int32)
-            self.l1 = put((l1_val << 8) | l1_bits, torch.int32)
-            self.l0_bits = put(l0_bits, torch.int64)
-            self.l0_val = put(l0_val, torch.int64)
-            self.l1_bits = put(l1_bits, torch.int64)
-            self.l1_val = put(l1_val, torch.int64)
+    @functools.cached_property
+    def l0_bits(self) -> torch.Tensor:
+        return self._plain(0)
+
+    @functools.cached_property
+    def l0_val(self) -> torch.Tensor:
+        return self._plain(1)
+
+    @functools.cached_property
+    def l1_bits(self) -> torch.Tensor:
+        return self._plain(2)
+
+    @functools.cached_property
+    def l1_val(self) -> torch.Tensor:
+        return self._plain(3)
 
     @staticmethod
     def for_table(table: HuffmanTable, dev: torch.device) -> "DeviceTable":
-        key = (id(table), str(dev))
-        dt = DeviceTable._cache.get(key)
-        if dt is None or dt.table is not table:
-            dt = DeviceTable(table, dev)
-            DeviceTable._cache[key] = dt
+        dt = table.staged.get(str(dev))
+        if dt is None:
+            dt = table.staged[str(dev)] = DeviceTable(table, dev)
         return dt
 
 

@@ -344,7 +344,8 @@ def walk_steps(dt) -> torch.Tensor:
             n = head[(window << pos) & ((1 << k) - 1)]
             whole &= (n > 0) & (pos + n <= k)
             pos = np.where(whole, pos + n, pos)
-        got = dt.walk_steps = torch.as_tensor(pos.astype(np.uint8)).to(dt.l0.device)
+        with metrics.h2d(pos.size):
+            got = dt.walk_steps = torch.as_tensor(pos.astype(np.uint8)).to(dt.l0.device)
     return got
 
 

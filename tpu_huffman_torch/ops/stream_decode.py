@@ -133,7 +133,7 @@ def walk_smem(threads: int, sub_bits: int, root_bits: int, l1_size: int, min_len
             + up(16 + words * 32 // min_len + 2))
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=256)  # one entry a table shape
 def _fit(threads: int, sub_bits: int, root_bits: int, l1_size: int, min_len: int) -> int:
     """``threads``, halved while the walk's shared memory does not fit."""
     while threads > 32 and walk_smem(threads, sub_bits, root_bits, l1_size,

@@ -24,6 +24,7 @@ from __future__ import annotations
 import dataclasses
 import os
 import re
+import time
 from typing import Iterable, Sequence
 
 import numpy as np
@@ -93,16 +94,41 @@ def parse_def(text: str) -> list[CodeSpec]:
     return specs
 
 
-def parse_tsv(text: str) -> list[CodeSpec]:
-    """Parse the native TSV table artifact: ``symbol\\tnum_bits\\thex``."""
-    specs = []
+def _tsv_rows(text: str) -> list[tuple[int, int, int]]:
+    """The ``(symbol, num_bits, pattern)`` rows of a TSV table, each checked
+    as :class:`CodeSpec` checks it (the first bad row raises its error)."""
+    rows = []
     for line in text.splitlines():
         line = line.strip()
         if not line or line.startswith("#"):
             continue
         sym, nbits, pat = line.split("\t")
-        specs.append(CodeSpec(int(sym), int(nbits), int(pat, 16)))
-    return specs
+        rows.append((int(sym), int(nbits), int(pat, 16)))
+    for row in rows:
+        s, n, p = row
+        if not (0 <= s < NUM_SYMBOLS and 1 <= n <= MAX_CODE_BITS) or p >> n:
+            CodeSpec(*row)  # raises
+    return rows
+
+
+def parse_tsv(text: str) -> list[CodeSpec]:
+    """Parse the native TSV table artifact: ``symbol\\tnum_bits\\thex``."""
+    return [CodeSpec(*row) for row in _tsv_rows(text)]
+
+
+def _fill(size: int, lo: np.ndarray, count: np.ndarray, *values: np.ndarray) -> list:
+    """For each of ``values``: an int32 array of ``size`` entries holding
+    ``values[k]`` over ``[lo[k], lo[k] + count[k])`` and 0 elsewhere. The
+    ranges are disjoint and ``lo`` ascending."""
+    gaps = lo - np.concatenate(([0], lo[:-1] + count[:-1]))
+    runs = np.empty(2 * lo.size + 1, dtype=np.int64)
+    runs[0:-1:2], runs[1::2], runs[-1] = gaps, count, size - (lo[-1] + count[-1] if lo.size else 0)
+    out = []
+    for v in values:
+        run_values = np.zeros(runs.size, dtype=np.int32)
+        run_values[1::2] = v
+        out.append(np.repeat(run_values, runs))
+    return out
 
 
 def _build_decode_lut(
@@ -110,65 +136,49 @@ def _build_decode_lut(
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, int]:
     """Build the two-level decode LUT, validating that the code is prefix-free.
 
+    Each code is a range of windows: at level 0 the root prefixes it
+    covers, or, for a code longer than ``root_bits``, one entry of its
+    prefix pointing at a subtable as wide as the longest code under that
+    prefix; the subtables lie in ``l1`` in prefix order. The arrays are
+    runs of those ranges (no loop over symbols).
+
     Returns (l0_bits, l0_val, l1_bits, l1_val, root_bits).
     """
     max_len = int(lengths.max()) if lengths.any() else 1
     root_bits = min(root_bits, max(max_len, 1))
-    size0 = 1 << root_bits
-    l0_bits = np.zeros(size0, dtype=np.int32)
-    l0_val = np.zeros(size0, dtype=np.int32)
+    syms = np.flatnonzero(lengths)
+    ln = lengths[syms].astype(np.int64)
+    pat = patterns[syms].astype(np.int64)
 
-    # Long codes are grouped by their root prefix to size the subtables.
-    long_by_prefix: dict[int, list[int]] = {}
-    for sym in range(NUM_SYMBOLS):
-        ln = int(lengths[sym])
-        if ln == 0:
-            continue
-        pat = int(patterns[sym])
-        if ln <= root_bits:
-            lo = pat << (root_bits - ln)
-            hi = (pat + 1) << (root_bits - ln)
-            if l0_bits[lo:hi].any():
-                raise TableError(f"table is not prefix-free at symbol {sym}")
-            l0_bits[lo:hi] = ln
-            l0_val[lo:hi] = sym
-        else:
-            long_by_prefix.setdefault(pat >> (ln - root_bits), []).append(sym)
+    # prefix-free: the codes' ranges of max_len-bit windows are disjoint
+    order = np.lexsort((syms, pat << (max_len - ln)))
+    lo = pat[order] << (max_len - ln[order])
+    clash = np.flatnonzero(lo[1:] < (lo[:-1] + (np.int64(1) << (max_len - ln[order][:-1]))))
+    if clash.size:
+        sym = int(np.max(syms[order][clash[:, None] + [0, 1]], axis=1).min())
+        raise TableError(f"table is not prefix-free at symbol {sym}")
 
-    l1_bits_parts: list[np.ndarray] = []
-    l1_val_parts: list[np.ndarray] = []
-    base = 0
-    for prefix, syms in sorted(long_by_prefix.items()):
-        if l0_bits[prefix] != 0:
-            raise TableError(
-                f"table is not prefix-free: prefix {prefix:0{root_bits}b} is both "
-                f"a code and a prefix of longer codes"
-            )
-        width = max(int(lengths[s]) for s in syms) - root_bits
-        sub_bits = np.zeros(1 << width, dtype=np.int32)
-        sub_val = np.zeros(1 << width, dtype=np.int32)
-        for sym in syms:
-            ln = int(lengths[sym])
-            rest = int(patterns[sym]) & ((1 << (ln - root_bits)) - 1)
-            lo = rest << (width - (ln - root_bits))
-            hi = (rest + 1) << (width - (ln - root_bits))
-            if sub_bits[lo:hi].any():
-                raise TableError(f"table is not prefix-free at symbol {sym}")
-            sub_bits[lo:hi] = ln
-            sub_val[lo:hi] = sym
-        l0_bits[prefix] = -width
-        l0_val[prefix] = base
-        l1_bits_parts.append(sub_bits)
-        l1_val_parts.append(sub_val)
-        base += 1 << width
-
-    if l1_bits_parts:
-        l1_bits = np.concatenate(l1_bits_parts)
-        l1_val = np.concatenate(l1_val_parts)
-    else:  # keep shapes non-empty so gathers stay trivially valid
-        l1_bits = np.zeros(1, dtype=np.int32)
-        l1_val = np.zeros(1, dtype=np.int32)
-    return l0_bits, l0_val, l1_bits.astype(np.int32), l1_val.astype(np.int32), root_bits
+    short = ln <= root_bits
+    width0 = root_bits - ln[short]
+    entries = [(pat[short] << width0, np.int64(1) << width0, ln[short], syms[short])]
+    l1_bits = l1_val = np.zeros(1, dtype=np.int32)  # keep shapes non-empty for gathers
+    if not short.all():
+        lng, lln, lpat = syms[~short], ln[~short], pat[~short]
+        prefix, which = np.unique(lpat >> (lln - root_bits), return_inverse=True)
+        width = np.zeros(prefix.size, dtype=np.int64)
+        np.maximum.at(width, which, lln - root_bits)
+        base = np.cumsum(np.int64(1) << width) - (np.int64(1) << width)
+        entries.append((prefix, np.ones_like(prefix), -width, base))
+        spare = width[which] - (lln - root_bits)  # subtable bits below each code's end
+        rest = lpat & ((np.int64(1) << (lln - root_bits)) - 1)
+        lo1 = base[which] + (rest << spare)
+        o = np.argsort(lo1)
+        l1_bits, l1_val = _fill(int(base[-1] + (1 << int(width[-1]))), lo1[o],
+                                (np.int64(1) << spare)[o], lln[o], lng[o])
+    lo0, count0, bits0, val0 = (np.concatenate(a) for a in zip(*entries))
+    o = np.argsort(lo0)
+    l0_bits, l0_val = _fill(1 << root_bits, lo0[o], count0[o], bits0[o], val0[o])
+    return l0_bits, l0_val, l1_bits, l1_val, root_bits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,6 +195,12 @@ class HuffmanTable:
     max_len: int
     min_len: int
     name: str = "table"
+    # host ns of its making, from the read of its file to the built LUT
+    build_ns: int = dataclasses.field(default=0, compare=False, repr=False)
+    # its ``DeviceTable`` per device (ops/encode.py), made at the first use
+    # there and gone with the table
+    staged: dict = dataclasses.field(default_factory=dict, init=False, compare=False,
+                                     repr=False)
 
     @staticmethod
     def from_specs(
@@ -192,17 +208,28 @@ class HuffmanTable:
         name: str = "table",
         root_bits: int = DEFAULT_ROOT_BITS,
     ) -> "HuffmanTable":
+        t0 = time.perf_counter_ns()
+        rows = [(spec.symbol, spec.num_bits, spec.pattern) for spec in specs]
+        return HuffmanTable._from_rows(rows, name, root_bits, t0)
+
+    @staticmethod
+    def _from_rows(
+        rows: list[tuple[int, int, int]], name: str, root_bits: int, t0: int
+    ) -> "HuffmanTable":
+        """The table of checked ``(symbol, num_bits, pattern)`` rows; ``t0``
+        the clock (``perf_counter_ns``) at which its making began."""
+        sym, nbits, pat = np.array(rows, dtype=np.int64).reshape(-1, 3).T
+        order = np.argsort(sym, kind="stable")
+        again = order[1:][sym[order][1:] == sym[order][:-1]]
+        if again.size:
+            raise TableError(f"symbol {int(sym[again.min()])} defined twice")
+        if not sym.size:
+            raise TableError("table defines no codes")
         patterns = np.zeros(NUM_SYMBOLS, dtype=np.uint32)
         lengths = np.zeros(NUM_SYMBOLS, dtype=np.int32)
-        for spec in specs:
-            if lengths[spec.symbol]:
-                raise TableError(f"symbol {spec.symbol} defined twice")
-            patterns[spec.symbol] = spec.pattern
-            lengths[spec.symbol] = spec.num_bits
-        if not lengths.any():
-            raise TableError("table defines no codes")
+        patterns[sym] = pat
+        lengths[sym] = nbits
         l0b, l0v, l1b, l1v, rb = _build_decode_lut(lengths, patterns, root_bits)
-        nz = lengths[lengths > 0]
         return HuffmanTable(
             patterns=patterns,
             lengths=lengths,
@@ -211,25 +238,29 @@ class HuffmanTable:
             l1_bits=l1b,
             l1_val=l1v,
             root_bits=rb,
-            max_len=int(nz.max()),
-            min_len=int(nz.min()),
+            max_len=int(nbits.max()),
+            min_len=int(nbits.min()),
             name=name,
+            build_ns=time.perf_counter_ns() - t0,
         )
 
     @staticmethod
     def from_def_file(path: str, name: str | None = None) -> "HuffmanTable":
+        t0 = time.perf_counter_ns()
         with open(path) as f:
             specs = parse_def(f.read())
-        return HuffmanTable.from_specs(
-            specs, name=name or os.path.splitext(os.path.basename(path))[0]
+        rows = [(spec.symbol, spec.num_bits, spec.pattern) for spec in specs]
+        return HuffmanTable._from_rows(
+            rows, name or os.path.splitext(os.path.basename(path))[0], DEFAULT_ROOT_BITS, t0
         )
 
     @staticmethod
     def from_tsv_file(path: str, name: str | None = None) -> "HuffmanTable":
+        t0 = time.perf_counter_ns()
         with open(path) as f:
-            specs = parse_tsv(f.read())
-        return HuffmanTable.from_specs(
-            specs, name=name or os.path.splitext(os.path.basename(path))[0]
+            rows = _tsv_rows(f.read())
+        return HuffmanTable._from_rows(
+            rows, name or os.path.splitext(os.path.basename(path))[0], DEFAULT_ROOT_BITS, t0
         )
 
     def specs(self) -> list[CodeSpec]:

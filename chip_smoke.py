@@ -68,8 +68,10 @@ Phases (any failure raises and the script exits non-zero):
      decode_indexed) and the foreign-stream path (decode of the same
      stream with no index), on the static table at 8 and 64 MiB of random
      bytes and the HPACK table at 8 MiB of header text; the decoded bytes
-     equal the input, and the encoded bytes and index equal the plain
-     version's; each encode makes exactly one count and one pack launch;
+     equal the input, the encoded bytes the C++ oracle's, and the encoded
+     bytes and index the plain version's; every download of both paths
+     lands in a pinned block (copies.d2h_pinned equal to copies.d2h); each
+     encode makes exactly one count and one pack launch;
      each decode takes the stitch (2 selfsync_decode launches, 4 with
      a walk and its re-decode, never the fixpoint), its launches and
      unresolved and walked segments printed;
@@ -2669,7 +2671,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     import tpu_huffman_torch as tt
-    from tpu_huffman_torch import _build
+    from tpu_huffman_torch import _build, metrics, oracle
     from tpu_huffman_torch.ops import chain_decode, pack_encode, selfsync, stream_decode
     from tpu_huffman_torch.ops.bitpack import stage_words
     from tpu_huffman_torch.ops.encode import DeviceTable, _encode_device
@@ -2921,7 +2923,9 @@ def main() -> int:
     runs = [("static 8 MiB", static, data8), ("static 64 MiB", static, data64),
             ("hpack 8 MiB", hpack, hdrs)]
 
-    # the indexed path: encode_with_index, then decode_indexed
+    # the indexed path: encode_with_index, then decode_indexed; every
+    # download of both paths lands in a pinned block (ops.encode.to_host)
+    copies0 = dict(metrics.copies)
     _reset(pack_encode.launches, chain_decode.launches)
     results = []
     for name, table, data in runs:
@@ -2962,6 +2966,11 @@ def main() -> int:
     if not all(foreign_launches.values()):
         raise AssertionError(f"a kernel of the foreign-stream path never ran: {foreign_launches}")
     launches.update(foreign_launches)
+    d2h, pinned = (metrics.copies[k] - copies0[k] for k in ("d2h", "d2h_pinned"))
+    print(f"phase 4 staging: {pinned} of {d2h} downloads of both paths into pinned blocks "
+          f"(d2h_pinned / d2h {pinned / max(d2h, 1):.4f})")
+    if not d2h or pinned != d2h:
+        raise AssertionError(f"phase 4: {d2h - pinned} of {d2h} downloads not pinned")
 
     for (name, table, data, enc, idx, dec, secs), (_, out, f_secs, ran, ends) in zip(
             results, foreign_runs):
@@ -2969,6 +2978,8 @@ def main() -> int:
             raise AssertionError(f"{name}: round trip differs")
         if out != data:
             raise AssertionError(f"{name}: decode of the stream differs")
+        if enc != oracle.oracle_encode(data, table):
+            raise AssertionError(f"{name}: encoded bytes differ from the oracle's")
         enc_p, idx_p = tt.encode_with_index(data, table, device="cpu")
         if enc != enc_p:
             raise AssertionError(f"{name}: encoded bytes differ from the plain version's")

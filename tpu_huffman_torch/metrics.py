@@ -71,7 +71,9 @@ def register(group: str, counts: dict) -> dict:
     return counts
 
 
-copies = register("copies", {"h2d": 0, "h2d_bytes": 0, "d2h": 0, "d2h_bytes": 0})
+# d2h_pinned: the downloads that landed in a pinned block (ops.encode.to_host)
+copies = register("copies", {"h2d": 0, "h2d_bytes": 0, "d2h": 0, "d2h_bytes": 0,
+                             "d2h_pinned": 0})
 setup = register("setup", {"kernel_builds": 0, "kernel_loads": 0})
 calls = register("calls", {"encode": 0, "encode_with_index": 0, "decode": 0,
                            "decode_indexed": 0, "stream.encode_chunk": 0,

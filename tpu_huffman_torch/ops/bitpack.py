@@ -104,12 +104,14 @@ def slide_words(buf: torch.Tensor, cw: int) -> torch.Tensor:
 def download(scalars: torch.Tensor, *parts: torch.Tensor):
     """One device-to-host copy of a 1-D int64 tensor ``scalars`` and 1-D
     uint8 ``parts``: (the scalars as a list of ints, each part as a numpy
-    uint8 array)."""
-    blob = torch.cat([scalars.view(torch.uint8), *parts]).cpu().numpy()
+    uint8 array that owns its memory: copied out of the staging block)."""
+    from .encode import to_host  # encode imports this module
+
+    blob = to_host(torch.cat([scalars.view(torch.uint8), *parts])).numpy()
     at = 8 * scalars.numel()
     vals, arrays = blob[:at].view(np.int64).tolist(), []
     for part in parts:
-        arrays.append(blob[at:at + part.numel()])
+        arrays.append(blob[at:at + part.numel()].copy())
         at += part.numel()
     return vals, arrays
 

@@ -26,7 +26,7 @@ from ..tables import HuffmanTable
 from . import chain_decode, selfsync, stream_decode
 from .bitpack import stage_words
 from .chain_decode import lut_lookup  # noqa: F401  (public, as in the JAX package)
-from .encode import DeviceTable, resolve_device, stage_bytes
+from .encode import DeviceTable, resolve_device, stage_bytes, to_host
 from .stream_decode import (  # noqa: F401  (public, as in the JAX package)
     STATUS_OK,
     STATUS_OUTPUT_FULL,
@@ -108,9 +108,9 @@ def _decode_indexed(data, index, table, device) -> bytes:
             DeviceTable.for_table(table, dev),
         )
     with metrics.d2h(out.numel()):
-        out_host = out.cpu()
+        out_host = to_host(out)
     with metrics.d2h(bad.element_size()):
-        if int(bad.item()):
+        if int(to_host(bad).item()):
             raise UnknownSymbolError()
         return out_host.numpy().tobytes()
 
@@ -143,8 +143,8 @@ def _decode_impl(data, table, max_output, device) -> bytes:
         DeviceTable.for_table(table, dev),
     )
     with metrics.d2h(8 * info.numel()):
-        n, _end_bit, status = info.tolist()
+        n, _end_bit, status = to_host(info).tolist()
     if status == STATUS_UNKNOWN_SYMBOL:
         raise UnknownSymbolError()
     with metrics.d2h(n):
-        return syms[:n].cpu().numpy().tobytes()
+        return to_host(syms[:n]).numpy().tobytes()

@@ -76,6 +76,25 @@ def stage_bytes(data, dev: torch.device) -> torch.Tensor:
         return staged.to(dev, non_blocking=True)
 
 
+def to_host(t: torch.Tensor) -> torch.Tensor:
+    """``t`` on the host: every download of the public calls goes through here.
+
+    A card's tensor is read into a pinned block that torch's caching host
+    allocator keeps and hands out again: no fresh pageable memory, and no
+    pass through CUDA's own bounce buffer. The copy is a blocking one, which
+    waits once on the current stream as the ``.cpu()`` it replaces does (a
+    host sync, none for an empty tensor), and records no event on the
+    block, so that the block is free again as soon as the returned tensor
+    dies. A caller therefore copies out of it (``.tobytes()``, ``.copy()``,
+    ``.tolist()``) and keeps no view. A CPU tensor is returned as it is."""
+    if t.device.type != "cuda":
+        return t
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t)
+    metrics.copies["d2h_pinned"] += 1
+    return host
+
+
 # Each table set-up (``DeviceTable``): the count, its host ns from the read
 # of the table's file to the staged upload (``HuffmanTable.build_ns`` and
 # the staging), and the bytes uploaded.
@@ -186,7 +205,7 @@ def _encode_device(symbols: torch.Tensor, dt: DeviceTable, eos_padding: int,
         tile_bits, stats = pack_encode.count(symbols, dt)
         incl = torch.cumsum(tile_bits, 0, dtype=torch.int64)
     with metrics.d2h(8 * (stats.numel() + 1)):
-        first_bad, max_len, total_bits = torch.cat([stats, incl[-1:]]).tolist()
+        first_bad, max_len, total_bits = to_host(torch.cat([stats, incl[-1:]])).tolist()
     if first_bad < n:
         raise UnknownSymbolError(index=first_bad, symbol=int(symbols[first_bad]))
     with metrics.span("tt.encode.pack"):
@@ -201,7 +220,7 @@ def _encode_device(symbols: torch.Tensor, dt: DeviceTable, eos_padding: int,
 
 def _to_bytes(words: torch.Tensor, padded_bits: int) -> bytes:
     with metrics.d2h(padded_bits // 8):
-        return words_to_bytes(words)[: padded_bits // 8].cpu().numpy().tobytes()
+        return to_host(words_to_bytes(words)[: padded_bits // 8]).numpy().tobytes()
 
 
 def encode(data, table: HuffmanTable, eos_padding: int = DEFAULT_EOS_PADDING,
@@ -273,7 +292,7 @@ def _encode_with_index(data, table, eos_padding, block_symbols, device):
     n_syms = np.full(n_blocks, block_symbols, dtype=np.int32)
     n_syms[-1] = n - (n_blocks - 1) * block_symbols
     with metrics.d2h(8 * block_offs.numel()):
-        bit_offsets = block_offs.cpu().numpy()
+        bit_offsets = to_host(block_offs).numpy().copy()
     index = BlockIndex(
         symbols_per_block=block_symbols,
         bit_offsets=bit_offsets,

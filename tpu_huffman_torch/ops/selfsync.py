@@ -111,7 +111,7 @@ from ..tables import MAX_CODE_BITS, HuffmanTable
 from . import stream_decode
 from .bitpack import download, extract_windows, stage_words, u32
 from .chain_decode import lut_lookup
-from .encode import DeviceTable, resolve_device, stage_bytes
+from .encode import DeviceTable, resolve_device, stage_bytes, to_host
 
 SEG_WORDS = 32  # 1024 bits per segment
 SEG_BITS = SEG_WORDS * 32
@@ -450,7 +450,7 @@ def _fixpoint(words: torch.Tensor, n_segs: int, seg_bits: int, start_bit: int,
                                                    starts=starts)
         new = torch.cat([entries[:1], exits[:-1] - seg_bits])
         with metrics.d2h(1):
-            same = torch.equal(new, entries)
+            same = bool(to_host((new == entries).all()))
         if same:
             return syms, counts, exits, bad, entries, passes
         entries = new
@@ -585,8 +585,8 @@ def stitch(words: torch.Tensor, start_bit: int, plan: tuple, dt,
             if capacity is not None:
                 cut_bit = _cut_bit(cum, capacity, seg_bits, i_eff, j_s, starts_a, starts0)
             with metrics.d2h(8 * (3 + len(flags))):
-                return torch.stack([cum[-1], last_exit.long(), cut_bit,
-                                    *(f.long() for f in flags)]).tolist()
+                return to_host(torch.stack([cum[-1], last_exit.long(), cut_bit,
+                                            *(f.long() for f in flags)])).tolist()
 
         total, last_exit, cut_bit, n_fail = read(counts, exits0[-1], fail.sum())
         n_walked = crossed = 0
@@ -666,10 +666,10 @@ def _fixpoint_body(words: torch.Tensor, start_bit: int, plan: tuple, dt,
             syms, counts, exits, bad, _entries, _passes = _fixpoint(
                 words, n_segs, seg_bits, start_bit, max_syms, dt)
             with metrics.d2h(24):
-                any_bad, last_exit, total = torch.stack([
+                any_bad, last_exit, total = to_host(torch.stack([
                     (bad != 0).any().to(torch.int64), exits[-1].to(torch.int64),
                     counts.sum(dtype=torch.int64),
-                ]).tolist()
+                ])).tolist()
             if any_bad:
                 raise UnknownSymbolError()
             return _body(syms, counts), n_segs * seg_bits + last_exit - seg_bits, total, None
@@ -695,10 +695,10 @@ def _fixpoint_body(words: torch.Tensor, start_bit: int, plan: tuple, dt,
         within = capacity - before(s_c)
         cut_rel = starts[s_c, within.clamp(0, max_syms - 1)]
         with metrics.d2h(48):
-            total, any_bad, before_bad, last_exit, s_c, cut_rel = torch.stack([
+            total, any_bad, before_bad, last_exit, s_c, cut_rel = to_host(torch.stack([
                 cum[-1], is_bad.any().to(torch.int64), before_bad, exits[-1].to(torch.int64),
                 s_c, cut_rel.to(torch.int64),
-            ]).tolist()
+            ])).tolist()
         if any_bad and capacity >= before_bad:
             raise UnknownSymbolError()
         cut = s_c * seg_bits + cut_rel if total > capacity else None
@@ -723,7 +723,7 @@ def decode_tail(words: torch.Tensor, from_bit: int, total_bits: int, budget: int
     decodable. Raises UnknownSymbolError where the reference would."""
     syms, info = stream_decode.decode_stream(words, from_bit, total_bits, budget, dt)
     with metrics.d2h(24):
-        n, end_bit, status = info.tolist()
+        n, end_bit, status = to_host(info).tolist()
     if status == stream_decode.STATUS_UNKNOWN_SYMBOL:
         raise UnknownSymbolError()
     return syms[:n], end_bit, status == stream_decode.STATUS_OUTPUT_FULL
@@ -786,7 +786,7 @@ def _drain_capped(words: torch.Tensor, start_bit: int, total_bits: int,
 
 def _host_bytes(symbols: torch.Tensor) -> bytes:
     with metrics.d2h(symbols.numel()):
-        return symbols.cpu().numpy().tobytes()
+        return to_host(symbols).numpy().tobytes()
 
 
 def _seg_words(seg_words: int | None) -> int:

@@ -66,7 +66,7 @@ from .errors import ShortBufferError, UnknownSymbolError
 from .ops import pack_encode, selfsync
 from .ops.bitpack import (MASK32, download, merge_words, slide_words, stage_words,
                           words_to_bytes)
-from .ops.encode import DEFAULT_EOS_PADDING, DeviceTable, resolve_device, stage_bytes
+from .ops.encode import DEFAULT_EOS_PADDING, DeviceTable, resolve_device, stage_bytes, to_host
 from .tables import HuffmanTable
 
 # Retained streams of more unconsumed bytes than this take the self-sync
@@ -311,8 +311,8 @@ class HuffmanEncoder:
             if nbytes > head.size:  # the rate hint fell short: the rest of the words
                 encode_outcomes["second_downloads"] += 1
                 with metrics.d2h(nbytes - head.size):
-                    out += words_to_bytes(words[k:-(-nbytes // 4)])[: nbytes - head.size].cpu(
-                    ).numpy().tobytes()
+                    out += to_host(words_to_bytes(words[k:-(-nbytes // 4)])[: nbytes - head.size]
+                                   ).numpy().tobytes()
             if writable is None:
                 dt.encode_rate = selfsync.RATE_MARGIN * total / n
             self.reset()
@@ -333,7 +333,7 @@ class HuffmanEncoder:
         with metrics.span("tt.encode.count"):
             sym, _dt, tile_bits, incl, scalars = self._count(symbols, writable)
         with metrics.d2h(8 * len(scalars)):
-            vals = torch.cat(scalars).tolist()
+            vals = to_host(torch.cat(scalars)).tolist()
         known = self._check_known(symbols, vals, writable)
         offs, total_bits = incl - tile_bits, vals[1] + self._carry_len
         if known and (writable is None or total_bits <= writable):
@@ -359,7 +359,7 @@ class HuffmanEncoder:
             if carry_len:
                 words[:1] |= _i32((carry_pat << (32 - carry_len)) & MASK32)
         with metrics.d2h(-(-total_bits // 8)):
-            return words_to_bytes(words)[: -(-total_bits // 8)].cpu().numpy().tobytes()
+            return to_host(words_to_bytes(words)[: -(-total_bits // 8)]).numpy().tobytes()
 
 
 class _DeviceRemainder:
@@ -434,7 +434,7 @@ class _DeviceRemainder:
         w = start_byte // 4
         with metrics.d2h(self.nbytes - start_byte):
             raw = words_to_bytes(self.buf[w : -(-self.nbytes // 4)])
-            data = raw[start_byte - 4 * w : self.nbytes - 4 * w].cpu().numpy().copy()
+            data = to_host(raw[start_byte - 4 * w : self.nbytes - 4 * w]).numpy().copy()
         return data, self.consumed_bit & 7
 
 
@@ -521,7 +521,7 @@ class HuffmanDecoder:
                 view, start_bit, total_bits, capacity,
                 DeviceTable.for_table(self.table, self.device))
         with metrics.d2h(syms.numel()):
-            out = syms.cpu().numpy().tobytes()
+            out = to_host(syms).numpy().tobytes()
         return out, base + end_bit, more
 
     def decode(self, data, capacity: int | None = None) -> bytes:
